@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+Run from the repository root: ``python3 chip_smoke.py``.  It needs one CUDA
+card, builds the bitonic kernels from ``src/repro_torch/kernels/bitonic_sort/
+csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
+
+  build    the nvcc build of the kernels
+  device   the card, its count, its name and power limit from nvidia-smi
+  parity   every kernel against its plain torch version on the card, at
+           8 rows x 2^21 keys, block_n 1024 and MAX_BLOCK_N, for float32,
+           int32, float16 and bfloat16: compared bit for bit
+  sort     repro_torch.sort of 10,000,000 float32 keys (model B, 8 tiles,
+           local_impl="kernel"), both directions, against the plain bitonic
+           network (bits) and torch.sort (values)
+  argsort  argsort / sort_kv of 10,000,000 duplicate-heavy int32 keys
+           against torch.sort(stable=True), with an (n, 4) float32 payload
+  topk     top-50 of (8, 151936) float32 logits with ties put in on purpose,
+           impl="kernel" against impl="xla"
+  block_n_sweep  the three paths' times at tile widths 1024, 4096, 16384
+  paths    each path's time beside its library yardstick, and its device
+           kernel time and idle share from torch.profiler
+
+then the kernels line (launches on the main path, time per launch, bound,
+plain and library times) and, last, the ok line.  Any failed check raises,
+so the script exits nonzero and prints no ok line.  Times come from CUDA
+events after warm-up, averaged over the repetitions the lines name.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+SORT_N = 10_000_000  # the largest size of the repo's paper figures (benchmarks/run.py)
+VOCAB = 151_936  # qwen3-0.6b's vocabulary (src/repro/configs/qwen3_0_6b.py)
+SOURCE = "src/repro_torch/kernels/bitonic_sort/csrc/bitonic_sort.cu"
+PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
+REPLACES = {
+    "block_sort": f"{PALLAS}:88",
+    "block_merge": f"{PALLAS}:124",
+    "global_stage": f"{PALLAS}:188",
+    "block_sort_kv": f"{PALLAS}:105",
+    "block_merge_kv": f"{PALLAS}:143",
+    "global_stage_kv": f"{PALLAS}:244",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(f"chip_smoke check failed: {what}")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call of ``fn`` on the current stream."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bytes_bound_ms(n: int, itemsize: int, ranks: bool) -> float:
+    """Each input read once, each output written once."""
+    nbytes = 2 * n * itemsize + (2 * n * 4 if ranks else 0)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def make_keys(dtype, shape, gen, device) -> torch.Tensor:
+    if dtype == torch.int32:
+        return torch.randint(0, 1 << 20, shape, generator=gen, device=device, dtype=torch.int32)
+    return (torch.randn(shape, generator=gen, device=device) * 100).to(dtype)
+
+
+def phase_parity(kernels, device) -> dict:
+    """Every kernel against its plain version on the same card tensors."""
+    rows, n = 8, 1 << 21
+    gen = torch.Generator(device=device).manual_seed(0)
+    worst = {name: 0.0 for name in REPLACES}
+    cases = 0
+    for dtype in (torch.float32, torch.int32, torch.float16, torch.bfloat16):
+        x = make_keys(dtype, (rows, n), gen, device)
+        r = torch.arange(n, dtype=torch.int32, device=device).expand(rows, n).contiguous()
+        for block_n in (1024, kernels.MAX_BLOCK_N):
+            k = 4 * block_n
+            runs = {
+                "block_sort": (lambda: (kernels.block_sort(x, block_n), None),
+                               lambda: kernels.plain_block_sort(x, None, block_n)),
+                "block_sort_kv": (lambda: kernels.block_sort_kv(x, r, block_n),
+                                  lambda: kernels.plain_block_sort(x, r, block_n)),
+                "block_merge": (lambda: (kernels.block_merge(x, block_n, k), None),
+                                lambda: kernels.plain_block_merge(x, None, block_n, k)),
+                "block_merge_kv": (lambda: kernels.block_merge_kv(x, r, block_n, k),
+                                   lambda: kernels.plain_block_merge(x, r, block_n, k)),
+            }
+            for j, kk in ((block_n, 4 * block_n), (n // 2, n)):
+                runs[f"global_stage@{j},{kk}"] = (
+                    lambda j=j, kk=kk: (kernels.global_stage(x, j, kk), None),
+                    lambda j=j, kk=kk: kernels.plain_global_stage(x, None, j, kk))
+                runs[f"global_stage_kv@{j},{kk}"] = (
+                    lambda j=j, kk=kk: kernels.global_stage_kv(x, r, j, kk),
+                    lambda j=j, kk=kk: kernels.plain_global_stage(x, r, j, kk))
+            for label, (kernel_fn, plain_fn) in runs.items():
+                got, got_r = kernel_fn()
+                want, want_r = plain_fn()
+                torch.cuda.synchronize()
+                what = f"{label} {dtype} block_n={block_n}"
+                check(same_bits(got, want), f"{what}: keys differ from the plain version")
+                if want_r is not None:
+                    check(torch.equal(got_r, want_r), f"{what}: ranks differ from the plain version")
+                name = label.split("@")[0]
+                worst[name] = max(worst[name], max_abs_err(got, want))
+                cases += 1
+    return {"rows": rows, "n": n, "block_n": [1024, kernels.MAX_BLOCK_N], "cases": cases,
+            "bitwise_equal": True, "max_abs_err": worst}
+
+
+def expected_launches(n: int, block_n: int, kv: bool) -> dict:
+    """Launches of one sort of rows of length n: A once, then per stage above
+    the tile one B and one C per substage at distance >= block_n."""
+    stages = max(0, (n - 1).bit_length() - block_n.bit_length() + 1)
+    suffix = "_kv" if kv else ""
+    counts = {f"block_sort{suffix}": 1, f"global_stage{suffix}": stages * (stages + 1) // 2,
+              f"block_merge{suffix}": stages}
+    return {k: v for k, v in counts.items() if v}
+
+
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device kernel time (ms), total
+    and the largest six by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue  # an aten op's device time is its kernels', counted there
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_kernel[ev.key[:120]] = by_kernel.get(ev.key[:120], 0.0) + us / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": sum(by_kernel.values()), "top": top}
+
+
+def counted(kernels, fn):
+    """Run ``fn`` with every launch count at 0 before; return (result, counts)."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available; this script needs one card")
+    import repro_torch
+    from repro_torch import engine
+    from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+
+    t0 = time.perf_counter()
+    lib, log = kernels.build()
+    emit({"phase": "build", "library": os.path.relpath(lib, ROOT),
+          "seconds": time.perf_counter() - t0, "nvcc_flags": " ".join(kernels.NVCC_FLAGS)})
+    print(log, file=sys.stderr, flush=True)
+
+    device = torch.device("cuda")
+    name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = smi.splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "name": name, "count": count, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    # -- kernel parity at real widths (these launches are not the main path's)
+    parity = phase_parity(kernels, device)
+    emit({"phase": "parity", **parity})
+
+    launches = {k: 0 for k in REPLACES}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # -- main path: model B sort of 10M float32 keys
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(SORT_N, generator=gen, device=device) * 1000
+    sort_kw = dict(strategy="shared", local_impl="kernel", n_threads=8)
+    got, counts = counted(kernels, lambda: repro_torch.sort(x, **sort_kw))
+    add(counts)
+    tile = (1 << (SORT_N - 1).bit_length()) // 8
+    check(counts == expected_launches(tile, 1024, kv=False), f"sort launches {counts}")
+    plain = repro_torch.sort(x, strategy="shared", local_impl="bitonic", n_threads=8)
+    check(same_bits(got, plain), "sort: kernel path differs from the plain bitonic path")
+    check(torch.equal(got, torch.sort(x).values), "sort: values differ from torch.sort")
+    got_desc, counts_desc = counted(kernels, lambda: repro_torch.sort(x, ascending=False, **sort_kw))
+    add(counts_desc)
+    plain_desc = repro_torch.sort(x, strategy="shared", local_impl="bitonic", n_threads=8,
+                                  ascending=False)
+    check(same_bits(got_desc, plain_desc), "sort descending: differs from the plain bitonic path")
+    check(torch.equal(got_desc, torch.sort(x, descending=True).values),
+          "sort descending: values differ from torch.sort")
+    check(bool(torch.isfinite(got).all()) and got.shape == x.shape, "sort: shape or finiteness")
+    emit({"phase": "sort", "n": SORT_N, "dtype": "float32", "padded": 1 << 24, **sort_kw,
+          "launches": counts, "launches_descending": counts_desc,
+          "bitwise_equal_plain_bitonic": True, "equal_torch_sort": True})
+
+    # -- main path: stable argsort and sort_kv of 10M duplicate-heavy int32 keys
+    keys = torch.randint(0, 1000, (SORT_N,), generator=gen, device=device, dtype=torch.int32)
+    idx, counts = counted(kernels, lambda: engine.argsort(keys, impl="kernel"))
+    add(counts)
+    check(counts == expected_launches(SORT_N, 1024, kv=True), f"argsort launches {counts}")
+    want_idx = torch.argsort(keys, stable=True)
+    check(torch.equal(idx.long(), want_idx), "argsort: differs from torch.argsort(stable=True)")
+    payload = torch.randn(SORT_N, 4, generator=gen, device=device)
+    (sk, sv), counts_kv = counted(kernels, lambda: engine.sort_kv(keys, {"p": payload}, impl="kernel"))
+    add(counts_kv)
+    check(torch.equal(sk, keys[want_idx]), "sort_kv: keys differ")
+    check(torch.equal(sv["p"], payload[want_idx]), "sort_kv: payload differs")
+    emit({"phase": "argsort", "n": SORT_N, "dtype": "int32", "key_range": [0, 1000],
+          "launches_argsort": counts, "launches_sort_kv": counts_kv,
+          "equal_torch_argsort_stable": True, "payload": [SORT_N, 4]})
+
+    # -- main path: decode top-k over a real vocabulary, with ties on purpose
+    logits = torch.randn(8, VOCAB, generator=gen, device=device)
+    top = logits.max(dim=-1, keepdim=True).values
+    logits[:, 1000:1004] = top  # four-way tie at the top
+    logits[:, [7, 70_000, 151_000]] = logits[:, [5]]  # ties among ordinary logits
+    logits[:, 12] = 50.0
+    logits[:, 151_935] = 50.0  # a tie at the top, far apart
+    (vals, tidx), counts = counted(kernels, lambda: engine.topk(logits, 50, impl="kernel"))
+    add(counts)
+    check(counts == expected_launches(VOCAB, 1024, kv=True), f"topk launches {counts}")
+    want_vals, want_tidx = engine.topk(logits, 50, impl="xla")
+    check(torch.equal(vals, want_vals), "topk: values differ from impl='xla'")
+    check(torch.equal(tidx.long(), want_tidx), "topk: indices differ from impl='xla'")
+    check(torch.equal(vals, torch.topk(logits, 50).values), "topk: values differ from torch.topk")
+    check(tidx[0, 0].item() == 12 and tidx[0, 1].item() == 151_935, "topk: lowest index wins a tie")
+    emit({"phase": "topk", "shape": [8, VOCAB], "k": 50, "launches": counts,
+          "equal_impl_xla": True})
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the main path")
+
+    # -- path times beside their library yardsticks
+    paths = {
+        "sort": (lambda: repro_torch.sort(x, **sort_kw), lambda: torch.sort(x)),
+        "argsort": (lambda: engine.argsort(keys, impl="kernel"),
+                    lambda: torch.argsort(keys, stable=True)),
+        "topk": (lambda: engine.topk(logits, 50, impl="kernel"), lambda: torch.topk(logits, 50)),
+    }
+    path_ms = {}
+    for label, (ours, library) in paths.items():
+        ms = time_ms(ours, reps=5)
+        prof = device_profile(ours)
+        path_ms[label] = {"ms": ms, "library_ms": time_ms(library, reps=5), "reps": 5,
+                          "device_ms": prof["device_ms"],
+                          "device_idle_share": 1.0 - prof["device_ms"] / ms if prof["device_ms"] else None,
+                          "top_device_kernels_ms": prof["top"]}
+    # the tile width trades C launches (one per substage above the tile) for
+    # longer shared-memory networks in A and B
+    sweep = {}
+    for bn in (1024, 4096, kernels.MAX_BLOCK_N):
+        sweep[bn] = {
+            "sort_ms": time_ms(lambda: repro_torch.sort(x, block_n=bn, **sort_kw), reps=3),
+            "argsort_ms": time_ms(lambda: engine.argsort(keys, impl="kernel", block_n=bn), reps=3),
+            "topk_ms": time_ms(lambda: engine.topk(logits, 50, impl="kernel", block_n=bn), reps=3),
+        }
+    emit({"phase": "block_n_sweep", "reps": 3, "times": sweep})
+    emit({"phase": "paths", "library": {"sort": "torch.sort", "argsort": "torch.argsort(stable=True)",
+                                        "topk": "torch.topk"}, "times": path_ms})
+
+    # -- per-launch times at the main path's shapes
+    rows, n, bn = 8, 1 << 21, 1024  # model B's tiles of the 10M sort
+    xs = make_keys(torch.float32, (rows, n), gen, device)
+    kv_keys = make_keys(torch.int32, (1, 1 << 24), gen, device)  # the 10M argsort row
+    kv_r = torch.arange(1 << 24, dtype=torch.int32, device=device).expand(1, 1 << 24).contiguous()
+    timed = {
+        "block_sort": ((lambda: kernels.block_sort(xs, bn)),
+                       (lambda: kernels.plain_block_sort(xs, None, bn)), rows * n, 4, False),
+        "block_merge": ((lambda: kernels.block_merge(xs, bn, n)),
+                        (lambda: kernels.plain_block_merge(xs, None, bn, n)), rows * n, 4, False),
+        "global_stage": ((lambda: kernels.global_stage(xs, n // 2, n)),
+                         (lambda: kernels.plain_global_stage(xs, None, n // 2, n)), rows * n, 4, False),
+        "block_sort_kv": ((lambda: kernels.block_sort_kv(kv_keys, kv_r, bn)),
+                          (lambda: kernels.plain_block_sort(kv_keys, kv_r, bn)), 1 << 24, 4, True),
+        "block_merge_kv": ((lambda: kernels.block_merge_kv(kv_keys, kv_r, bn, 1 << 24)),
+                           (lambda: kernels.plain_block_merge(kv_keys, kv_r, bn, 1 << 24)),
+                           1 << 24, 4, True),
+        "global_stage_kv": ((lambda: kernels.global_stage_kv(kv_keys, kv_r, 1 << 23, 1 << 24)),
+                            (lambda: kernels.plain_global_stage(kv_keys, kv_r, 1 << 23, 1 << 24)),
+                            1 << 24, 4, True),
+    }
+    entries = []
+    for kname, (kernel_fn, plain_fn, elems, itemsize, ranks) in timed.items():
+        entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": SOURCE,
+            "replaces": REPLACES[kname],
+            "launches": launches[kname],
+            "max_abs_err": parity["max_abs_err"][kname],
+            "ms": time_ms(kernel_fn, reps=20),
+            "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
+            "bound_ms": bytes_bound_ms(elems, itemsize, ranks),
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shape": [rows, n] if not ranks else [1, 1 << 24],
+            "dtype": "float32" if not ranks else "int32+int32 ranks",
+            "block_n": bn,
+            "reps": 20,
+            "plain_reps": 3,
+        })
+    # the top-k row shape, for the kv kernels' second main-path use
+    tk_keys = make_keys(torch.float32, (8, 1 << 18), gen, device)
+    tk_r = torch.arange(1 << 18, dtype=torch.int32, device=device).expand(8, 1 << 18).contiguous()
+    emit({"phase": "topk_shape_times", "shape": [8, 1 << 18], "block_n": bn, "reps": 20,
+          "bound_ms": bytes_bound_ms(8 << 18, 4, True),
+          "ms": {"block_sort_kv": time_ms(lambda: kernels.block_sort_kv(tk_keys, tk_r, bn), reps=20),
+                 "block_merge_kv": time_ms(lambda: kernels.block_merge_kv(tk_keys, tk_r, bn, 1 << 18),
+                                           reps=20),
+                 "global_stage_kv": time_ms(
+                     lambda: kernels.global_stage_kv(tk_keys, tk_r, 1 << 17, 1 << 18), reps=20)}})
+    print(smi, flush=True)
+    emit({"kernels": entries})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
+
+
+if __name__ == "__main__":
+    main()

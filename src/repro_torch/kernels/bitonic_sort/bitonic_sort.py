@@ -1,0 +1,316 @@
+"""Hand-written CUDA bitonic network kernels for Hopper, and their plain versions.
+
+Counterpart of ``repro/kernels/bitonic_sort/bitonic_sort.py`` (Pallas, TPU).
+The kernels are in ``csrc/bitonic_sort.cu``; this module builds that file with
+``nvcc`` for ``sm_90a`` into ``build/`` at the repository root on first use,
+loads it with ``ctypes``, and wraps each kernel:
+
+  A     block_sort     / block_sort_kv     per-tile full network, tile b of a
+                                           row ascending iff b is even
+  B     block_merge    / block_merge_kv    substages j = block_n/2 .. 1 of one
+                                           stage k > block_n, fused per tile
+  C     global_stage   / global_stage_kv   one cross-tile substage j >= block_n
+
+Every wrapper takes a contiguous tensor whose last axis (length n, a power of
+two) is sorted row by row; the leading dims are rows of the kernel grid.  The
+``*_kv`` twins carry int32 ranks with the (key, rank) comparator, so the rank
+output is the stable permutation.
+
+A wrapper runs where its tensor lives: on a CUDA tensor it launches the
+kernel (and adds one to its ``launches`` count) or raises; on a CPU tensor it
+runs the plain torch version of the same network, which repeats the kernel's
+arithmetic step by step.  Keys may be float32, int32, float16 or bfloat16.
+Tiles hold at most ``MAX_BLOCK_N`` keys (one CUDA block's shared memory; the
+TPU's VMEM took larger tiles).  NaN keys give unspecified output, as in the
+reference.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = [
+    "MAX_BLOCK_N",
+    "KERNELS",
+    "block_sort",
+    "block_merge",
+    "global_stage",
+    "block_sort_kv",
+    "block_merge_kv",
+    "global_stage_kv",
+    "build",
+    "plain_block_sort",
+    "plain_block_merge",
+    "plain_global_stage",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+# f32 keys + int32 ranks at 16384 is 128 KiB of the 227 KiB a block may use
+MAX_BLOCK_N = 16384
+
+_DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.float16: 2, torch.bfloat16: 3}
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "bitonic_sort.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/bitonic_sort.cu`` into ``build/`` (once per source
+    version) and return ``(library path, compiler log)``; raises if nvcc fails.
+    The library is named by a hash of the source and flags, so an edited
+    source never loads a stale build."""
+    tag = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = _BUILD_DIR / f"bitonic_sort-{tag[:16]}.so"
+    if out.exists():
+        return out, ""
+    _BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.bitonic_block_sort.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+    lib.bitonic_block_merge.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i64, ptr]
+    lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    for fn in (lib.bitonic_block_sort, lib.bitonic_block_merge, lib.bitonic_global_stage):
+        fn.restype = i32
+    lib.bitonic_error_string.argtypes = [i32]
+    lib.bitonic_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _is_pow2(v: int) -> bool:
+    return v >= 1 and v & (v - 1) == 0
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """True to launch the kernel, False to run the plain version."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"bitonic kernels run on CUDA or CPU tensors, not {x.device}")
+
+
+def _check(x: torch.Tensor, r: torch.Tensor | None, block_n: int | None = None) -> int:
+    """Validate keys (and ranks); return the row length n."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported key dtype {x.dtype}; expected one of {list(_DTYPE_CODE)}")
+    if x.dim() < 1 or not _is_pow2(x.shape[-1]):
+        raise ValueError(f"last axis must be a power of two, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("keys must be contiguous")
+    if r is not None:
+        if r.dtype != torch.int32 or r.shape != x.shape or r.device != x.device:
+            raise ValueError("ranks must be int32, shaped and placed like the keys")
+        if not r.is_contiguous():
+            raise ValueError("ranks must be contiguous")
+    n = x.shape[-1]
+    if block_n is not None:
+        if not _is_pow2(block_n) or block_n > n:
+            raise ValueError(f"block_n={block_n} must be a power of two <= n={n}")
+        if block_n > MAX_BLOCK_N:
+            raise ValueError(
+                f"block_n={block_n} exceeds MAX_BLOCK_N={MAX_BLOCK_N}: a tile must fit "
+                "one CUDA block's shared memory"
+            )
+    return n
+
+
+def _launch(fn: str, x, r, ox, orank, *args) -> None:
+    n = x.shape[-1]
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, fn)(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), None if r is None else r.data_ptr(),
+            ox.data_ptr(), None if orank is None else orank.data_ptr(),
+            x.numel() // n, n, *args, stream,
+        )
+    if err:
+        raise RuntimeError(f"{fn} failed: {lib.bitonic_error_string(err).decode()}")
+
+
+# ------------------------------------------------------------- plain versions ---
+def _ce_plain(x, r, j: int, dir_up):
+    """One compare-exchange substage at distance j over rows of x.
+
+    ``dir_up`` is a bool tensor over the n/(2j) groups of a row (leading
+    dims broadcast); the comparator and swap rule are the kernel's."""
+    shape = x.shape
+    lead = shape[:-1]
+    xa, xb = x.reshape(*lead, -1, 2, j).unbind(-2)
+    gt = xa > xb
+    if r is not None:
+        ra, rb = r.reshape(*lead, -1, 2, j).unbind(-2)
+        gt = gt | ((xa == xb) & (ra > rb))
+    swap = gt == dir_up[..., None]
+    x = torch.stack([torch.where(swap, xb, xa), torch.where(swap, xa, xb)], dim=-2)
+    if r is not None:
+        r = torch.stack([torch.where(swap, rb, ra), torch.where(swap, ra, rb)], dim=-2)
+        r = r.reshape(shape)
+    return x.reshape(shape), r
+
+
+def _group_starts(n: int, j: int, device) -> torch.Tensor:
+    """Row index of the first element of each of the n/(2j) groups."""
+    return torch.arange(n // (2 * j), device=device, dtype=torch.int64) * (2 * j)
+
+
+def plain_block_sort(x, r, block_n: int):
+    """Kernel A (``r`` None) or A-kv in plain torch, on any device -> (x, r)."""
+    n = x.shape[-1]
+    k = 2
+    while k <= block_n:
+        j = k // 2
+        while j >= 1:
+            i = _group_starts(n, j, x.device)
+            asc = (i // block_n) % 2 == 0  # tile parity within the row
+            x, r = _ce_plain(x, r, j, (((i % block_n) & k) == 0) == asc)
+            j //= 2
+        k *= 2
+    return x, r
+
+
+def plain_block_merge(x, r, block_n: int, k: int):
+    """Kernel B or B-kv in plain torch, on any device -> (x, r)."""
+    n = x.shape[-1]
+    j = block_n // 2
+    while j >= 1:
+        i = _group_starts(n, j, x.device)
+        x, r = _ce_plain(x, r, j, (((i // block_n) * block_n) & k) == 0)
+        j //= 2
+    return x, r
+
+
+def plain_global_stage(x, r, j: int, k: int):
+    """Kernel C or C-kv in plain torch, on any device -> (x, r)."""
+    i = _group_starts(x.shape[-1], j, x.device)
+    return _ce_plain(x, r, j, (i & k) == 0)
+
+
+def _check_stage(n: int, j: int, k: int) -> None:
+    if not (_is_pow2(j) and _is_pow2(k) and 2 * j <= k <= n):
+        raise ValueError(f"need powers of two with 2*j <= k <= n, got j={j} k={k} n={n}")
+
+
+# ------------------------------------------------------------------ wrappers ---
+def block_sort(x: torch.Tensor, block_n: int) -> torch.Tensor:
+    """Kernel A: sort every aligned ``block_n`` tile of each row, tile b of a
+    row ascending iff b is even (replaces ``_block_sort_kernel``)."""
+    _check(x, None, block_n)
+    if not _on_cuda(x):
+        return plain_block_sort(x, None, block_n)[0]
+    out = torch.empty_like(x)
+    _launch("bitonic_block_sort", x, None, out, None, block_n)
+    block_sort.launches += 1
+    return out
+
+
+def block_merge(x: torch.Tensor, block_n: int, k: int) -> torch.Tensor:
+    """Kernel B: substages j = block_n/2 .. 1 of stage ``k > block_n``, fused
+    per tile; up iff (tile start & k) == 0 (replaces ``_block_merge_kernel``)."""
+    n = _check(x, None, block_n)
+    _check_stage(n, block_n, k)
+    if not _on_cuda(x):
+        return plain_block_merge(x, None, block_n, k)[0]
+    out = torch.empty_like(x)
+    _launch("bitonic_block_merge", x, None, out, None, block_n, k)
+    block_merge.launches += 1
+    return out
+
+
+def global_stage(x: torch.Tensor, j: int, k: int) -> torch.Tensor:
+    """Kernel C: one cross-tile compare-exchange at distance ``j`` of stage
+    ``k``; a group starting at i sorts up iff (i & k) == 0 (replaces the
+    jnp-level ``global_stage``)."""
+    n = _check(x, None)
+    _check_stage(n, j, k)
+    if not _on_cuda(x):
+        return plain_global_stage(x, None, j, k)[0]
+    out = torch.empty_like(x)
+    _launch("bitonic_global_stage", x, None, out, None, j, k)
+    global_stage.launches += 1
+    return out
+
+
+def block_sort_kv(x: torch.Tensor, r: torch.Tensor, block_n: int):
+    """Kernel A-kv: kernel A on (key, int32 rank) pairs -> (keys, ranks)
+    (replaces ``_block_sort_kv_kernel``)."""
+    _check(x, r, block_n)
+    if not _on_cuda(x):
+        return plain_block_sort(x, r, block_n)
+    out, out_r = torch.empty_like(x), torch.empty_like(r)
+    _launch("bitonic_block_sort", x, r, out, out_r, block_n)
+    block_sort_kv.launches += 1
+    return out, out_r
+
+
+def block_merge_kv(x: torch.Tensor, r: torch.Tensor, block_n: int, k: int):
+    """Kernel B-kv: kernel B on (key, int32 rank) pairs -> (keys, ranks)
+    (replaces ``_block_merge_kv_kernel``)."""
+    n = _check(x, r, block_n)
+    _check_stage(n, block_n, k)
+    if not _on_cuda(x):
+        return plain_block_merge(x, r, block_n, k)
+    out, out_r = torch.empty_like(x), torch.empty_like(r)
+    _launch("bitonic_block_merge", x, r, out, out_r, block_n, k)
+    block_merge_kv.launches += 1
+    return out, out_r
+
+
+def global_stage_kv(x: torch.Tensor, r: torch.Tensor, j: int, k: int):
+    """Kernel C-kv: kernel C on (key, int32 rank) pairs -> (keys, ranks)
+    (replaces the jnp-level ``global_stage_kv``)."""
+    n = _check(x, r)
+    _check_stage(n, j, k)
+    if not _on_cuda(x):
+        return plain_global_stage(x, r, j, k)
+    out, out_r = torch.empty_like(x), torch.empty_like(r)
+    _launch("bitonic_global_stage", x, r, out, out_r, j, k)
+    global_stage_kv.launches += 1
+    return out, out_r
+
+
+KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv, global_stage_kv)
+for _kernel in KERNELS:
+    _kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

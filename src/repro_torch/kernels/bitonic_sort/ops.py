@@ -1,0 +1,143 @@
+"""Composition of the bitonic kernels: sort / argsort / kv-sort (torch).
+
+Counterpart of ``repro/kernels/bitonic_sort/ops.py``.  ``kernel_sort(x)``
+sorts the last axis of any length >= 1: it pads to the next power of two with
++sentinel keys, runs the tiled network, and slices the valid prefix back out.
+
+  phase 1:  kernel A  (per-tile alternating-direction sort)
+  stages k = 2*block_n .. n:
+     j = k/2 .. block_n   : kernel C, one launch per substage
+     j = block_n/2 .. 1   : kernel B (one fused shared-memory pass)
+
+Leading dims are rows of the kernel grid (the reference ``vmap``s its 1-D
+kernels over them instead).  ``kernel_argsort`` runs the same network on
+(key, rank) pairs — ranks never tie, so the permutation it returns (int32,
+as the reference's) is the stable one.  ``kernel_sort_kv`` gathers a dict of
+payloads by it.
+
+``block_n`` is the shared-memory tile width: a power of two, clamped to the
+padded length and at most ``MAX_BLOCK_N``.  NaN keys give unspecified output.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bitonic import next_pow2, sentinel_for
+
+from .bitonic_sort import (
+    MAX_BLOCK_N,
+    block_merge,
+    block_merge_kv,
+    block_sort,
+    block_sort_kv,
+    global_stage,
+    global_stage_kv,
+)
+
+__all__ = [
+    "kernel_sort",
+    "kernel_argsort",
+    "kernel_sort_kv",
+    "DEFAULT_BLOCK_N",
+    "MAX_BLOCK_N",
+]
+
+DEFAULT_BLOCK_N = 1024
+
+
+def _resolve_shape(n: int, block_n: int):
+    """(padded length, effective block_n) for an arbitrary input length."""
+    if block_n < 1 or block_n & (block_n - 1):
+        raise ValueError(f"block_n={block_n} must be a power of two")
+    np2 = next_pow2(max(n, 1))
+    return np2, min(block_n, np2)
+
+
+def _padded_rows(x: torch.Tensor, block_n: int):
+    """(effective block_n, keys as contiguous (rows, padded length))."""
+    if x.dim() < 1:
+        raise ValueError("expected at least one axis to sort")
+    n = x.shape[-1]
+    if n < 1:
+        raise ValueError("need at least one element to sort")
+    np2, block_n = _resolve_shape(n, block_n)
+    rows = x.reshape(-1, n)
+    if np2 != n:
+        pad = rows.new_full((rows.shape[0], np2 - n), sentinel_for(x.dtype, largest=True).item())
+        rows = torch.cat([rows, pad], dim=-1)
+    return block_n, rows.contiguous()
+
+
+def _sort_rows(x: torch.Tensor, block_n: int) -> torch.Tensor:
+    """The launch sequence of the reference's ``_pallas_sort_impl``."""
+    n = x.shape[-1]
+    x = block_sort(x, block_n)
+    k = 2 * block_n
+    while k <= n:
+        j = k // 2
+        while j >= block_n:
+            x = global_stage(x, j, k)
+            j //= 2
+        x = block_merge(x, block_n, k)
+        k *= 2
+    return x
+
+
+def _argsort_rows(x: torch.Tensor, block_n: int):
+    """The launch sequence of the reference's ``_pallas_argsort_impl``."""
+    n = x.shape[-1]
+    r = torch.arange(n, dtype=torch.int32, device=x.device).expand(x.shape).contiguous()
+    x, r = block_sort_kv(x, r, block_n)
+    k = 2 * block_n
+    while k <= n:
+        j = k // 2
+        while j >= block_n:
+            x, r = global_stage_kv(x, r, j, k)
+            j //= 2
+        x, r = block_merge_kv(x, r, block_n, k)
+        k *= 2
+    return x, r
+
+
+def kernel_sort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.Tensor:
+    """Sort the last axis of ``x`` (any length >= 1) ascending through the
+    tiled bitonic kernels.
+
+    Pad keys can only displace *equal* (sentinel-valued) real keys, so the
+    sliced prefix is always the sorted input.
+
+    >>> kernel_sort(torch.tensor([3, 1, 2], dtype=torch.int32)).tolist()
+    [1, 2, 3]
+    """
+    block_n, rows = _padded_rows(x, block_n)
+    out = _sort_rows(rows, block_n)
+    return out[:, : x.shape[-1]].reshape(x.shape)
+
+
+def kernel_argsort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.Tensor:
+    """Stable ascending argsort of the last axis (any length >= 1), int32.
+
+    Matches ``np.argsort(kind='stable')``: pad entries (sentinel key, rank
+    >= n) sort after every real element, even one equal to the sentinel.
+
+    >>> kernel_argsort(torch.tensor([30, 10, 20, 10], dtype=torch.int32)).tolist()
+    [1, 3, 2, 0]
+    """
+    block_n, rows = _padded_rows(x, block_n)
+    _, perm = _argsort_rows(rows, block_n)
+    return perm[:, : x.shape[-1]].reshape(x.shape)
+
+
+def kernel_sort_kv(keys: torch.Tensor, values: dict, *, block_n: int = DEFAULT_BLOCK_N):
+    """Stable key-value sort: 1-D keys, a dict of (n, ...) payloads.
+
+    Returns ``(sorted_keys, permuted_values)``.
+
+    >>> k, v = kernel_sort_kv(torch.tensor([2.0, 1.0, 2.0]), {"i": torch.tensor([0, 1, 2])})
+    >>> k.tolist(), v["i"].tolist()
+    ([1.0, 2.0, 2.0], [1, 0, 2])
+    """
+    if keys.dim() != 1:
+        raise ValueError("kernel_sort_kv expects 1-D keys")
+    perm = kernel_argsort(keys, block_n=block_n).long()
+    return keys[perm], {name: v[perm] for name, v in values.items()}

@@ -1,0 +1,198 @@
+"""Port vs reference: the bitonic network, its oracles and the kernels' plain
+versions.
+
+``repro_torch.core.bitonic`` against ``repro.core.bitonic``, the ``ref.py``
+oracles against theirs, and the CUDA kernels' plain versions (what the
+wrappers run on CPU tensors) against the Pallas kernels in interpret mode.
+Same seeded numpy inputs, bit patterns compared (exact: nothing does
+arithmetic on the keys).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import DTYPES, LENGTHS, SIGNED_ZEROS, assert_bits_equal, cpu, make_keys
+from repro.core import bitonic as ref_bitonic
+from repro.kernels.bitonic_sort import bitonic_sort as ref_kernels
+from repro.kernels.bitonic_sort import ref as ref_oracles
+from repro_torch.core import bitonic
+from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+from repro_torch.kernels.bitonic_sort import ref as oracles
+
+
+# ------------------------------------------------------------ core network ---
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_bitonic_sort_matches_reference(dtype, n):
+    x = make_keys(dtype, (2, n), seed=n)
+    assert_bits_equal(bitonic.bitonic_sort(cpu(x)), ref_bitonic.bitonic_sort(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bitonic_sort_stable_with_values(dtype, ascending):
+    k = make_keys(dtype, 300, seed=1, duplicates=True)
+    v = np.random.default_rng(2).standard_normal(300).astype(np.float32)
+    got_k, got_v = bitonic.bitonic_sort(cpu(k), {"v": cpu(v)}, ascending=ascending, stable=True)
+    want_k, want_v = ref_bitonic.bitonic_sort(
+        jnp.asarray(k), {"v": jnp.asarray(v)}, ascending=ascending, stable=True
+    )
+    assert_bits_equal(got_k, want_k)
+    assert_bits_equal(got_v["v"], want_v["v"])
+
+
+def test_network_keeps_signed_zeros_in_network_order():
+    assert_bits_equal(
+        bitonic.bitonic_sort(cpu(SIGNED_ZEROS)), ref_bitonic.bitonic_sort(jnp.asarray(SIGNED_ZEROS))
+    )
+
+
+@pytest.mark.parametrize("largest", [True, False])
+def test_bitonic_topk_matches_reference(largest):
+    x = make_keys("float32", (3, 100), seed=3, duplicates=True)
+    got_v, got_i = bitonic.bitonic_topk(cpu(x), 10, largest=largest)
+    want_v, want_i = ref_bitonic.bitonic_topk(jnp.asarray(x), 10, largest=largest)
+    assert_bits_equal(got_v, want_v)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+def test_bitonic_merge_pair_matches_reference(ascending):
+    rng = np.random.default_rng(4)
+    a = np.sort(rng.integers(0, 50, 64)).astype(np.int32)
+    b = np.sort(rng.integers(0, 50, 64)).astype(np.int32)
+    va, vb = np.arange(64, dtype=np.int32), np.arange(64, 128, dtype=np.int32)
+    if not ascending:
+        a, b = a[::-1].copy(), b[::-1].copy()
+    got_k, got_v = bitonic.bitonic_merge_pair(cpu(a), cpu(b), cpu(va), cpu(vb), ascending=ascending)
+    want_k, want_v = ref_bitonic.bitonic_merge_pair(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(va), jnp.asarray(vb), ascending=ascending
+    )
+    assert_bits_equal(got_k, want_k)
+    assert_bits_equal(got_v, want_v)
+
+
+def test_next_pow2_matches_reference():
+    for n in (1, 2, 3, 4, 5, 1000, 1024, 1025, 10_000_000):
+        assert bitonic.next_pow2(n) == ref_bitonic.next_pow2(n)
+
+
+# ----------------------------------------------------------------- oracles ---
+# the reference oracles are plain jnp; jit keeps their op-by-op dispatch short
+_REF_BLOCK_SORT = jax.jit(ref_oracles.block_sort_ref, static_argnums=1)
+_REF_BLOCK_MERGE = jax.jit(ref_oracles.block_merge_ref, static_argnums=(1, 2))
+_REF_GLOBAL_STAGE = jax.jit(ref_oracles.global_stage_ref, static_argnums=(1, 2))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ref_oracles_match_reference(dtype):
+    block_n, n = 32, 256
+    x = make_keys(dtype, n, seed=5)
+    y, ry = oracles.block_sort_ref(cpu(x), block_n), _REF_BLOCK_SORT(jnp.asarray(x), block_n)
+    assert_bits_equal(y, ry)
+    k = 2 * block_n
+    while k <= n:
+        j = k // 2
+        while j >= block_n:
+            y, ry = oracles.global_stage_ref(y, j, k), _REF_GLOBAL_STAGE(ry, j, k)
+            assert_bits_equal(y, ry)
+            j //= 2
+        y, ry = oracles.block_merge_ref(y, block_n, k), _REF_BLOCK_MERGE(ry, block_n, k)
+        assert_bits_equal(y, ry)
+        k *= 2
+    assert_bits_equal(oracles.full_sort_ref(cpu(x)), ref_oracles.full_sort_ref(jnp.asarray(x)))
+
+
+# ------------------------------------ plain kernel versions vs Pallas kernels ---
+@pytest.mark.parametrize("block_n,n", [(64, 64), (64, 512), (128, 1024)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_block_sort_plain_matches_pallas(dtype, block_n, n):
+    x = make_keys(dtype, n, seed=block_n + n)
+    want = ref_kernels.block_sort(jnp.asarray(x), block_n, interpret=True)
+    assert_bits_equal(kernels.block_sort(cpu(x), block_n), want)
+
+
+def test_block_sort_plain_keeps_signed_zeros_like_pallas():
+    want = ref_kernels.block_sort(jnp.asarray(SIGNED_ZEROS), 4, interpret=True)
+    assert_bits_equal(kernels.block_sort(cpu(SIGNED_ZEROS), 4), want)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_merge_and_global_stage_plain_match_pallas(dtype):
+    """B and C over every stage of a 64-wide tiling of 512 keys, each step
+    from the same state."""
+    block_n, n = 64, 512
+    x = jnp.asarray(make_keys(dtype, n, seed=6))
+    y = ref_kernels.block_sort(x, block_n, interpret=True)
+    k = 2 * block_n
+    while k <= n:
+        j = k // 2
+        while j >= block_n:
+            want = ref_kernels.global_stage(y, j, k)
+            assert_bits_equal(kernels.global_stage(cpu(np.asarray(y)), j, k), want)
+            y, j = want, j // 2
+        want = ref_kernels.block_merge(y, block_n, k, interpret=True)
+        assert_bits_equal(kernels.block_merge(cpu(np.asarray(y)), block_n, k), want)
+        y, k = want, k * 2
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kv_kernels_plain_match_pallas(dtype):
+    """A-kv, C-kv and B-kv on duplicate-heavy keys (the rank tie-break
+    decides), with a key equal to the pad sentinel."""
+    block_n, n = 64, 256
+    x = make_keys(dtype, n, seed=7, duplicates=True)
+    x[3] = np.asarray(ref_bitonic.sentinel_for(jnp.dtype(DTYPES[dtype]), largest=True))
+    r = np.arange(n, dtype=np.int32)
+    y, ry = ref_kernels.block_sort_kv(jnp.asarray(x), jnp.asarray(r), block_n, interpret=True)
+    got, got_r = kernels.block_sort_kv(cpu(x), cpu(r), block_n)
+    assert_bits_equal(got, y)
+    assert_bits_equal(got_r, ry)
+    k = 2 * block_n
+    while k <= n:
+        j = k // 2
+        while j >= block_n:
+            y, ry = ref_kernels.global_stage_kv(y, ry, j, k)
+            got, got_r = kernels.global_stage_kv(got, got_r, j, k)
+            assert_bits_equal(got, y)
+            assert_bits_equal(got_r, ry)
+            j //= 2
+        y, ry = ref_kernels.block_merge_kv(y, ry, block_n, k, interpret=True)
+        got, got_r = kernels.block_merge_kv(got, got_r, block_n, k)
+        assert_bits_equal(got, y)
+        assert_bits_equal(got_r, ry)
+        k *= 2
+
+
+def test_block_sort_plain_directions_follow_the_tile_within_its_row():
+    """Rows one tile long all sort ascending: the direction comes from the
+    tile's index within its row, as the reference computes it under vmap."""
+    x = make_keys("float32", (3, 64), seed=8)
+    got = kernels.block_sort(cpu(x), 64)
+    np.testing.assert_array_equal(got.numpy(), np.sort(x, axis=-1))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros(64)
+    with pytest.raises(ValueError):
+        kernels.block_sort(x, 48)  # block_n not a power of two
+    with pytest.raises(ValueError):
+        kernels.block_sort(torch.zeros(kernels.MAX_BLOCK_N * 2), kernels.MAX_BLOCK_N * 2)
+    with pytest.raises(ValueError):
+        kernels.block_sort(torch.zeros(48), 16)  # row length not a power of two
+    with pytest.raises(ValueError):
+        kernels.block_sort(torch.zeros(8, 64).t(), 4)  # not contiguous
+    with pytest.raises(TypeError):
+        kernels.block_sort(torch.zeros(64, dtype=torch.int64), 16)
+    with pytest.raises(ValueError):
+        kernels.global_stage(x, 16, 16)  # k < 2j
+    with pytest.raises(ValueError):
+        kernels.block_sort_kv(x, torch.arange(64), 16)  # int64 ranks
+
+
+def test_plain_versions_leave_launch_counts_alone():
+    kernels.reset_launch_counts()
+    kernels.block_sort(torch.zeros(64), 16)
+    assert set(kernels.launch_counts().values()) == {0}

@@ -1,0 +1,119 @@
+"""The CUDA kernels on the card: each against its plain version, bit for bit,
+and the launch counts that show the kernels ran.
+
+Marked ``gpu``; every test takes the ``cuda`` fixture, which skips when no
+card is present.  Run on a machine with a card:
+``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import engine
+from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+from repro_torch.kernels.bitonic_sort import ops
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = (torch.float32, torch.int32, torch.float16, torch.bfloat16)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    kernels.reset_launch_counts()
+    return torch.device("cuda")
+
+
+def _keys(dtype, shape, seed, duplicates=False):
+    g = torch.Generator().manual_seed(seed)
+    if duplicates:
+        return torch.randint(0, 7, shape, generator=g).to(dtype)
+    if dtype == torch.int32:
+        return torch.randint(-(2**31), 2**31 - 1, shape, generator=g, dtype=torch.int32)
+    return (torch.randn(shape, generator=g) * 100).to(dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.element_size() == 2 else t.view(torch.int32)
+
+
+def _assert_same_bits(got, want):
+    assert torch.equal(_bits(got.cpu()), _bits(want.cpu()))
+
+
+@pytest.mark.parametrize("block_n", [1, 2, 64, 1024, kernels.MAX_BLOCK_N])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_block_kernels_match_plain(cuda, dtype, block_n):
+    n = 4 * kernels.MAX_BLOCK_N  # room for stage k = 4 * block_n
+    x = _keys(dtype, (3, n), seed=block_n)
+    r = torch.arange(n, dtype=torch.int32).expand(3, n).contiguous()
+    _assert_same_bits(kernels.block_sort(x.to(cuda), block_n), kernels.block_sort(x, block_n))
+    got, got_r = kernels.block_sort_kv(x.to(cuda), r.to(cuda), block_n)
+    want, want_r = kernels.block_sort_kv(x, r, block_n)
+    _assert_same_bits(got, want)
+    assert torch.equal(got_r.cpu(), want_r)
+    k = 4 * block_n
+    _assert_same_bits(kernels.block_merge(x.to(cuda), block_n, k), kernels.block_merge(x, block_n, k))
+    got, got_r = kernels.block_merge_kv(x.to(cuda), r.to(cuda), block_n, k)
+    want, want_r = kernels.block_merge_kv(x, r, block_n, k)
+    _assert_same_bits(got, want)
+    assert torch.equal(got_r.cpu(), want_r)
+    assert kernels.launch_counts() == {
+        "block_sort": 1, "block_merge": 1, "global_stage": 0,
+        "block_sort_kv": 1, "block_merge_kv": 1, "global_stage_kv": 0,
+    }
+
+
+@pytest.mark.parametrize("j,k", [(1, 2), (64, 256), (4096, 65536), (32768, 65536)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_global_stage_kernels_match_plain(cuda, dtype, j, k):
+    n = 65536
+    x = _keys(dtype, (2, n), seed=j, duplicates=True)
+    r = torch.arange(n, dtype=torch.int32).expand(2, n).contiguous()
+    _assert_same_bits(kernels.global_stage(x.to(cuda), j, k), kernels.global_stage(x, j, k))
+    got, got_r = kernels.global_stage_kv(x.to(cuda), r.to(cuda), j, k)
+    want, want_r = kernels.global_stage_kv(x, r, j, k)
+    _assert_same_bits(got, want)
+    assert torch.equal(got_r.cpu(), want_r)
+    assert kernels.launch_counts()["global_stage"] == 1
+    assert kernels.launch_counts()["global_stage_kv"] == 1
+
+
+def test_signed_zeros_stay_in_network_order(cuda):
+    x = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0, -0.0, 0.0, 2.0])
+    _assert_same_bits(ops.kernel_sort(x.to(cuda), block_n=4), ops.kernel_sort(x, block_n=4))
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 100_000])
+def test_sort_and_argsort_launch_the_kernels(cuda, n):
+    x = _keys(torch.float32, (4, n), seed=n)
+    got = ops.kernel_sort(x.to(cuda), block_n=256)
+    assert torch.equal(got.cpu(), torch.sort(x, dim=-1).values)
+    idx = engine.argsort(x.to(cuda), impl="kernel", block_n=256)
+    assert torch.equal(idx.cpu().long(), torch.sort(x, dim=-1, stable=True).indices)
+    counts = kernels.launch_counts()
+    assert counts["block_sort"] == 1 and counts["block_sort_kv"] == 1
+    stages = max(0, (max(n, 1) - 1).bit_length() - 8)  # stages above the 256 tile
+    assert counts["block_merge"] == counts["block_merge_kv"] == stages
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    for name in ("plain_block_sort", "plain_block_merge", "plain_global_stage"):
+        monkeypatch.setattr(kernels, name, refuse)
+    x = _keys(torch.int32, (50_000,), seed=1).to(cuda)
+    vals, idx = engine.topk(x, 10, impl="kernel", block_n=1024)
+    want_v, _ = torch.topk(x.cpu(), 10)
+    assert torch.equal(vals.cpu(), want_v)
+    assert torch.equal(ops.kernel_sort(x).cpu(), torch.sort(x.cpu()).values)
+
+
+def test_block_n_above_the_cap_raises(cuda):
+    x = torch.zeros(4 * kernels.MAX_BLOCK_N, device=cuda)
+    with pytest.raises(ValueError, match="MAX_BLOCK_N"):
+        kernels.block_sort(x, 2 * kernels.MAX_BLOCK_N)
+    assert np.all(np.array(list(kernels.launch_counts().values())) == 0)

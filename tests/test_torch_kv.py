@@ -1,0 +1,107 @@
+"""Port vs reference: single-device argsort / sort_kv / sort_pairs / topk.
+
+``impl='kernel'`` (the CUDA kernels' plain versions on CPU tensors) is held
+against the reference's ``impl='pallas'`` (interpret mode), and
+``impl='xla'`` (``torch.sort(stable=True)``) against ``impl='xla'``
+(``jnp.argsort(stable=True)``).  Permutations and gathered payloads are
+compared exactly.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import DTYPES, assert_bits_equal, cpu, make_keys
+from repro.engine import kv as ref_kv
+from repro_torch.engine import kv
+
+_REF_IMPL = {"kernel": "pallas", "xla": "xla"}
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_argsort_matches_reference(impl, dtype, ascending):
+    x = make_keys(dtype, (2, 300), seed=30, duplicates=True)
+    got = kv.argsort(cpu(x), ascending=ascending, impl=impl, block_n=64)
+    want = ref_kv.argsort(jnp.asarray(x), ascending=ascending, impl=_REF_IMPL[impl], block_n=64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    order = x if ascending else -x.astype(np.float64)
+    np.testing.assert_array_equal(got.numpy(), np.argsort(order, axis=-1, kind="stable"))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1000])
+def test_kernel_argsort_any_length(n):
+    x = make_keys("int32", n, seed=31, duplicates=True)
+    x[0] = np.iinfo(np.int32).max  # a key equal to the pad sentinel
+    got = kv.argsort(cpu(x), impl="kernel", block_n=128)
+    want = ref_kv.argsort(jnp.asarray(x), impl="pallas", block_n=128)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_sort_kv_matches_reference(impl, ascending):
+    keys = make_keys("float32", 500, seed=32, duplicates=True)
+    rng = np.random.default_rng(33)
+    values = {"payload": rng.standard_normal((500, 4)).astype(np.float32),
+              "id": np.arange(500, dtype=np.int32)}
+    got_k, got_v = kv.sort_kv(cpu(keys), {k: cpu(v) for k, v in values.items()},
+                              ascending=ascending, impl=impl, block_n=128)
+    want_k, want_v = ref_kv.sort_kv(jnp.asarray(keys), jax.tree.map(jnp.asarray, values),
+                                    ascending=ascending, impl=_REF_IMPL[impl], block_n=128)
+    assert_bits_equal(got_k, want_k)
+    for name in values:
+        assert_bits_equal(got_v[name], want_v[name])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_sort_pairs_matches_reference(impl):
+    keys = make_keys("bfloat16", (3, 100), seed=34, duplicates=True)
+    values = np.random.default_rng(35).integers(0, 1000, (3, 100)).astype(np.int32)
+    got_k, got_v = kv.sort_pairs(cpu(keys), cpu(values), impl=impl, block_n=32)
+    want_k, want_v = ref_kv.sort_pairs(jnp.asarray(keys), jnp.asarray(values),
+                                       impl=_REF_IMPL[impl], block_n=32)
+    assert_bits_equal(got_k, want_k)
+    assert_bits_equal(got_v, want_v)
+
+
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_topk_matches_reference_with_ties(impl, largest):
+    x = make_keys("float32", (4, 700), seed=36)
+    x[:, [5, 77, 400]] = x[:, [3]]  # ties put in on purpose: lowest index wins
+    x[:, [10, 11]] = x.max() + 1
+    got_v, got_i = kv.topk(cpu(x), 20, largest=largest, impl=impl, block_n=128)
+    want_v, want_i = ref_kv.topk(jnp.asarray(x), 20, largest=largest,
+                                 impl=_REF_IMPL[impl], block_n=128)
+    assert_bits_equal(got_v, want_v)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    if largest:
+        lax_v, lax_i = jax.lax.top_k(jnp.asarray(x), 20)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(lax_i))
+
+
+def test_kernel_and_library_argsort_agree_on_signed_zeros():
+    x = np.array([0.0, -0.0, 0.0, -0.0, 1.0, -0.0, 0.0, 2.0], np.float32)
+    want = ref_kv.argsort(jnp.asarray(x), impl="pallas", block_n=4)
+    np.testing.assert_array_equal(kv.argsort(cpu(x), impl="kernel", block_n=4).numpy(), np.asarray(want))
+    np.testing.assert_array_equal(kv.argsort(cpu(x), impl="xla").numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rev_key_matches_reference(dtype):
+    x = make_keys(dtype, 64, seed=37)
+    got = kv._rev_key(cpu(x))
+    assert got.dtype == cpu(x).dtype
+    assert_bits_equal(got, ref_kv._rev_key(jnp.asarray(x)))
+
+
+def test_mesh_and_unknown_impl_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kv.argsort(torch.zeros(8), mesh=object(), axis="x")
+    with pytest.raises(NotImplementedError):
+        kv.sort_kv(torch.zeros(8), {}, mesh=object(), axis="x")
+    with pytest.raises(ValueError):
+        kv.argsort(torch.zeros(8), impl="pallas")
