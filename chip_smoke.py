@@ -9,7 +9,8 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
   device   the card, its count, its name and power limit from nvidia-smi
   parity   every kernel against its plain torch version on the card, at
            8 rows x 2^21 keys, block_n 1024 and MAX_BLOCK_N, for float32,
-           int32, float16 and bfloat16: compared bit for bit
+           int32, float16 and bfloat16: compared bit for bit (B and B-kv at
+           stages k = 2 * block_n, 4 * block_n and 2^21)
   sort     repro_torch.sort of 10,000,000 float32 keys (model B, 8 tiles,
            local_impl="kernel"), both directions, against the plain bitonic
            network (bits) and torch.sort (values)
@@ -20,10 +21,18 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
   block_n_sweep  the three paths' times at tile widths 1024, 4096, 16384
   paths    each path's time beside its library yardstick, and its device
            kernel time and idle share from torch.profiler
+  launch_host_us  host microseconds per wrapper call, back to back at a
+           tiny shape (1 x 4096), where the device work is a few microseconds:
+           the cost that bounds top-k
+  merge_variants  kernel B and B-kv at the main path's shapes under other
+           launch geometries than _merge_geometry's (one ring slot, two
+           tiles a block, 16 keys a thread), each bit-equal to the default
 
 then the kernels line (launches on the main path, time per launch, bound,
-plain and library times) and, last, the ok line.  Any failed check raises,
-so the script exits nonzero and prints no ok line.  Times come from CUDA
+plain and library times; the library time of A, B and their kv twins is
+torch.sort over the same tiles, which the port never calls) and, last, the
+ok line.  Any failed check raises, so the script exits nonzero and prints no
+ok line.  Times come from CUDA
 events after warm-up, averaged over the repetitions the lines name.
 """
 import json
@@ -106,17 +115,19 @@ def phase_parity(kernels, device) -> dict:
         x = make_keys(dtype, (rows, n), gen, device)
         r = torch.arange(n, dtype=torch.int32, device=device).expand(rows, n).contiguous()
         for block_n in (1024, kernels.MAX_BLOCK_N):
-            k = 4 * block_n
             runs = {
                 "block_sort": (lambda: (kernels.block_sort(x, block_n), None),
                                lambda: kernels.plain_block_sort(x, None, block_n)),
                 "block_sort_kv": (lambda: kernels.block_sort_kv(x, r, block_n),
                                   lambda: kernels.plain_block_sort(x, r, block_n)),
-                "block_merge": (lambda: (kernels.block_merge(x, block_n, k), None),
-                                lambda: kernels.plain_block_merge(x, None, block_n, k)),
-                "block_merge_kv": (lambda: kernels.block_merge_kv(x, r, block_n, k),
-                                   lambda: kernels.plain_block_merge(x, r, block_n, k)),
             }
+            for k in (2 * block_n, 4 * block_n, n):  # tiles alternating, in fours, all up
+                runs[f"block_merge@{k}"] = (
+                    lambda k=k: (kernels.block_merge(x, block_n, k), None),
+                    lambda k=k: kernels.plain_block_merge(x, None, block_n, k))
+                runs[f"block_merge_kv@{k}"] = (
+                    lambda k=k: kernels.block_merge_kv(x, r, block_n, k),
+                    lambda k=k: kernels.plain_block_merge(x, r, block_n, k))
             for j, kk in ((block_n, 4 * block_n), (n // 2, n)):
                 runs[f"global_stage@{j},{kk}"] = (
                     lambda j=j, kk=kk: (kernels.global_stage(x, j, kk), None),
@@ -135,7 +146,8 @@ def phase_parity(kernels, device) -> dict:
                 name = label.split("@")[0]
                 worst[name] = max(worst[name], max_abs_err(got, want))
                 cases += 1
-    return {"rows": rows, "n": n, "block_n": [1024, kernels.MAX_BLOCK_N], "cases": cases,
+    return {"rows": rows, "n": n, "block_n": [1024, kernels.MAX_BLOCK_N],
+            "merge_k": ["2*block_n", "4*block_n", n], "cases": cases,
             "bitwise_equal": True, "max_abs_err": worst}
 
 
@@ -179,6 +191,72 @@ def counted(kernels, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def launch_host_us(kernels, device, calls: int = 200) -> dict:
+    """Host microseconds per wrapper call, back to back, ending in a
+    synchronize, at a shape whose device work is a few microseconds."""
+    n, bn = 4096, 1024
+    x = torch.randn(1, n, device=device)
+    r = torch.arange(n, dtype=torch.int32, device=device).view(1, n)
+    runs = {
+        "block_sort": lambda: kernels.block_sort(x, bn),
+        "block_merge": lambda: kernels.block_merge(x, bn, n),
+        "global_stage": lambda: kernels.global_stage(x, n // 2, n),
+        "block_sort_kv": lambda: kernels.block_sort_kv(x, r, bn),
+        "block_merge_kv": lambda: kernels.block_merge_kv(x, r, bn, n),
+        "global_stage_kv": lambda: kernels.global_stage_kv(x, r, n // 2, n),
+    }
+    out = {}
+    for name, fn in runs.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def merge_variants(kernels, xs, kv_keys, kv_r, bn: int) -> dict:
+    """Kernel B and B-kv at the main path's shapes under launch geometries
+    other than ``_merge_geometry``'s, each bit-equal to it.  These launches go
+    through the C entry point directly and count nowhere.  ``default`` is
+    timed first and last, to show the spread."""
+    out = {}
+    for label, x, r in (("block_merge", xs, None), ("block_merge_kv", kv_keys, kv_r)):
+        k = x.shape[-1]
+        item = x.element_size() + (0 if r is None else 4)
+        base = kernels._merge_geometry(bn, x.element_size(), r is not None)
+
+        def geometry(t, e, per_block, slots):
+            return kernels.MergeGeometry(t, e, per_block, slots,
+                                         slots * per_block * bn * item + kernels._MERGE_BARRIER_BYTES)
+
+        t, e, per_block, slots, _ = base
+        variants = {
+            "default": base,
+            "one_slot": geometry(t, e, per_block, 1),
+            "two_tiles_a_block": geometry(t, e, 2 * per_block, slots),
+            "16_keys_a_thread": geometry(bn // 16, 16, 2 * per_block, slots),
+            "default_again": base,
+        }
+        want = kernels.block_merge(x, bn, k) if r is None else kernels.block_merge_kv(x, r, bn, k)[0]
+        times = {}
+        for name, g in variants.items():
+            ox, orank = torch.empty_like(x), None if r is None else torch.empty_like(r)
+
+            def run(g=g, ox=ox, orank=orank):
+                kernels._launch("bitonic_block_merge", x, r, ox, orank, bn, k, *g)
+
+            run()
+            torch.cuda.synchronize()
+            check(same_bits(ox, want), f"{label} variant {name}: differs from the default geometry")
+            times[name] = {"geometry": list(g), "ms": time_ms(run, reps=20)}
+        out[label] = times
+    return out
 
 
 def main() -> None:
@@ -264,7 +342,8 @@ def main() -> None:
     check(counts == expected_launches(VOCAB, 1024, kv=True), f"topk launches {counts}")
     want_vals, want_tidx = engine.topk(logits, 50, impl="xla")
     check(torch.equal(vals, want_vals), "topk: values differ from impl='xla'")
-    check(torch.equal(tidx.long(), want_tidx), "topk: indices differ from impl='xla'")
+    check(tidx.dtype == want_tidx.dtype == torch.int32 and torch.equal(tidx, want_tidx),
+          "topk: int32 indices differ from impl='xla'")
     check(torch.equal(vals, torch.topk(logits, 50).values), "topk: values differ from torch.topk")
     check(tidx[0, 0].item() == 12 and tidx[0, 1].item() == 151_935, "topk: lowest index wins a tie")
     emit({"phase": "topk", "shape": [8, VOCAB], "k": 50, "launches": counts,
@@ -305,24 +384,37 @@ def main() -> None:
     xs = make_keys(torch.float32, (rows, n), gen, device)
     kv_keys = make_keys(torch.int32, (1, 1 << 24), gen, device)  # the 10M argsort row
     kv_r = torch.arange(1 << 24, dtype=torch.int32, device=device).expand(1, 1 << 24).contiguous()
+
+    # library yardstick of the tile kernels: torch.sort over the same tiles
+    # (every tile ascending; the kv rows stable, with int64 local indices)
+    def tile_sort():
+        return torch.sort(xs.view(-1, bn), dim=-1)
+
+    def tile_sort_kv():
+        return torch.sort(kv_keys.view(-1, bn), dim=-1, stable=True)
+
     timed = {
         "block_sort": ((lambda: kernels.block_sort(xs, bn)),
-                       (lambda: kernels.plain_block_sort(xs, None, bn)), rows * n, 4, False),
+                       (lambda: kernels.plain_block_sort(xs, None, bn)), tile_sort,
+                       rows * n, 4, False),
         "block_merge": ((lambda: kernels.block_merge(xs, bn, n)),
-                        (lambda: kernels.plain_block_merge(xs, None, bn, n)), rows * n, 4, False),
+                        (lambda: kernels.plain_block_merge(xs, None, bn, n)), tile_sort,
+                        rows * n, 4, False),
         "global_stage": ((lambda: kernels.global_stage(xs, n // 2, n)),
-                         (lambda: kernels.plain_global_stage(xs, None, n // 2, n)), rows * n, 4, False),
+                         (lambda: kernels.plain_global_stage(xs, None, n // 2, n)), None,
+                         rows * n, 4, False),
         "block_sort_kv": ((lambda: kernels.block_sort_kv(kv_keys, kv_r, bn)),
-                          (lambda: kernels.plain_block_sort(kv_keys, kv_r, bn)), 1 << 24, 4, True),
+                          (lambda: kernels.plain_block_sort(kv_keys, kv_r, bn)), tile_sort_kv,
+                          1 << 24, 4, True),
         "block_merge_kv": ((lambda: kernels.block_merge_kv(kv_keys, kv_r, bn, 1 << 24)),
                            (lambda: kernels.plain_block_merge(kv_keys, kv_r, bn, 1 << 24)),
-                           1 << 24, 4, True),
+                           tile_sort_kv, 1 << 24, 4, True),
         "global_stage_kv": ((lambda: kernels.global_stage_kv(kv_keys, kv_r, 1 << 23, 1 << 24)),
                             (lambda: kernels.plain_global_stage(kv_keys, kv_r, 1 << 23, 1 << 24)),
-                            1 << 24, 4, True),
+                            None, 1 << 24, 4, True),
     }
     entries = []
-    for kname, (kernel_fn, plain_fn, elems, itemsize, ranks) in timed.items():
+    for kname, (kernel_fn, plain_fn, library_fn, elems, itemsize, ranks) in timed.items():
         entries.append({
             "name": kname,
             "route": "cuda",
@@ -334,7 +426,7 @@ def main() -> None:
             "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
             "bound_ms": bytes_bound_ms(elems, itemsize, ranks),
             "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": None if library_fn is None else time_ms(library_fn, reps=20),
             "shape": [rows, n] if not ranks else [1, 1 << 24],
             "dtype": "float32" if not ranks else "int32+int32 ranks",
             "block_n": bn,
@@ -351,6 +443,10 @@ def main() -> None:
                                            reps=20),
                  "global_stage_kv": time_ms(
                      lambda: kernels.global_stage_kv(tk_keys, tk_r, 1 << 17, 1 << 18), reps=20)}})
+    emit({"phase": "launch_host_us", "shape": [1, 4096], "block_n": 1024, "calls": 200,
+          "us": launch_host_us(kernels, device)})
+    emit({"phase": "merge_variants", "block_n": bn, "reps": 20,
+          **merge_variants(kernels, xs, kv_keys, kv_r, bn)})
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -2,9 +2,9 @@
 
 Counterpart of the local half of ``repro/engine/kv.py`` (``mesh=None``).
 Every call sorts the last axis, with any leading batch dims, through a stable
-argsort and gathers by it: ``impl='xla'`` is ``torch.sort(stable=True)``
-(int64 indices), ``impl='kernel'`` the hand-written CUDA (key, rank) network
-(int32 indices, as the reference's).  ``values`` is a dict of tensors shaped
+argsort and gathers by it: ``impl='xla'`` is ``torch.sort(stable=True)``,
+``impl='kernel'`` the hand-written CUDA (key, rank) network; both return
+int32 indices, as the reference's ``jnp.argsort`` does.  ``values`` is a dict of tensors shaped
 like the keys plus optional trailing dims.  The mesh path (model D with a
 payload) is a later slice: ``mesh=`` raises ``NotImplementedError``.
 
@@ -52,7 +52,7 @@ def _order_keys(
         return kernel_argsort(k, block_n=block_n or DEFAULT_BLOCK_N)
     if impl != "xla":
         raise ValueError(f"argsort impl must be 'xla' or 'kernel', got {impl!r}")
-    return torch.sort(k, dim=-1, stable=True).indices
+    return torch.sort(k, dim=-1, stable=True).indices.to(torch.int32)
 
 
 def _gather_last(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:

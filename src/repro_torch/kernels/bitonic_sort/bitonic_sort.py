@@ -8,7 +8,8 @@ loads it with ``ctypes``, and wraps each kernel:
   A     block_sort     / block_sort_kv     per-tile full network, tile b of a
                                            row ascending iff b is even
   B     block_merge    / block_merge_kv    substages j = block_n/2 .. 1 of one
-                                           stage k > block_n, fused per tile
+                                           stage k > block_n, fused per tile, in
+                                           registers (``_merge_geometry``)
   C     global_stage   / global_stage_kv   one cross-tile substage j >= block_n
 
 Every wrapper takes a contiguous tensor whose last axis (length n, a power of
@@ -22,7 +23,9 @@ runs the plain torch version of the same network, which repeats the kernel's
 arithmetic step by step.  Keys may be float32, int32, float16 or bfloat16.
 Tiles hold at most ``MAX_BLOCK_N`` keys (one CUDA block's shared memory; the
 TPU's VMEM took larger tiles).  NaN keys give unspecified output, as in the
-reference.
+reference.  Kernel B bulk-copies its inputs, so on the card they must start
+on a 16-byte boundary (``ValueError`` otherwise); every tensor the sort
+paths hand it is a fresh allocation.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -55,6 +59,9 @@ __all__ = [
 
 # f32 keys + int32 ranks at 16384 is 128 KiB of the 227 KiB a block may use
 MAX_BLOCK_N = 16384
+_SMEM_PER_BLOCK = 232_448  # dynamic shared memory one sm_90 block may use
+_MERGE_MIN_THREADS = 128  # narrower tiles are packed several to a merge block
+_MERGE_BARRIER_BYTES = 16  # the merge kernel's two mbarriers, after its ring
 
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.float16: 2, torch.bfloat16: 3}
 
@@ -99,7 +106,9 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.bitonic_block_sort.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-    lib.bitonic_block_merge.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, i64, ptr]
+    lib.bitonic_block_merge.argtypes = [
+        i32, ptr, ptr, ptr, ptr, i64, i64, i32, i64, i32, i32, i32, i32, i32, ptr,
+    ]
     lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
     for fn in (lib.bitonic_block_sort, lib.bitonic_block_merge, lib.bitonic_global_stage):
         fn.restype = i32
@@ -144,6 +153,44 @@ def _check(x: torch.Tensor, r: torch.Tensor | None, block_n: int | None = None) 
                 "one CUDA block's shared memory"
             )
     return n
+
+
+class MergeGeometry(NamedTuple):
+    """Launch geometry of kernel B for one tile width (see ``_merge_geometry``)."""
+
+    threads_per_tile: int  # T
+    elems_per_thread: int  # E, with T * E == block_n
+    tiles_per_block: int
+    slots: int  # chunks of tiles_per_block tiles the block's ring holds
+    smem_bytes: int
+
+
+@functools.cache
+def _merge_geometry(block_n: int, itemsize: int, has_rank: bool) -> MergeGeometry:
+    """Kernel B's geometry for ``block_n`` keys of ``itemsize`` bytes.
+
+    T threads hold E keys each in registers.  Every substage j < T after the
+    transpose is a warp shuffle at lane distance j / E, so T <= 32 * E: the
+    smallest E in (8, 16, 32) with block_n <= 32 * E**2 (E = block_n below 8).
+    Tiles of fewer than 128 threads are packed into blocks of 128.  The ring
+    holds two chunks of tiles when they fit in a block's shared memory, else
+    one (16384 keys with ranks)."""
+    e = min(block_n, next(e for e in (8, 16, 32) if block_n <= 32 * e * e))
+    t = block_n // e
+    tiles_per_block = max(1, _MERGE_MIN_THREADS // t)
+    slot = tiles_per_block * block_n * (itemsize + (4 if has_rank else 0))
+    slots = 2 if 2 * slot + _MERGE_BARRIER_BYTES <= _SMEM_PER_BLOCK else 1
+    return MergeGeometry(t, e, tiles_per_block, slots, slots * slot + _MERGE_BARRIER_BYTES)
+
+
+def _check_aligned(*tensors) -> None:
+    """Kernel B bulk-copies its inputs: each must start on 16 bytes."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                "block_merge needs inputs that start on a 16-byte boundary "
+                f"(data_ptr % 16 = {t.data_ptr() % 16}); pass a fresh contiguous tensor"
+            )
 
 
 def _launch(fn: str, x, r, ox, orank, *args) -> None:
@@ -243,8 +290,10 @@ def block_merge(x: torch.Tensor, block_n: int, k: int) -> torch.Tensor:
     _check_stage(n, block_n, k)
     if not _on_cuda(x):
         return plain_block_merge(x, None, block_n, k)[0]
+    _check_aligned(x)
     out = torch.empty_like(x)
-    _launch("bitonic_block_merge", x, None, out, None, block_n, k)
+    geometry = _merge_geometry(block_n, x.element_size(), False)
+    _launch("bitonic_block_merge", x, None, out, None, block_n, k, *geometry)
     block_merge.launches += 1
     return out
 
@@ -282,8 +331,10 @@ def block_merge_kv(x: torch.Tensor, r: torch.Tensor, block_n: int, k: int):
     _check_stage(n, block_n, k)
     if not _on_cuda(x):
         return plain_block_merge(x, r, block_n, k)
+    _check_aligned(x, r)
     out, out_r = torch.empty_like(x), torch.empty_like(r)
-    _launch("bitonic_block_merge", x, r, out, out_r, block_n, k)
+    geometry = _merge_geometry(block_n, x.element_size(), True)
+    _launch("bitonic_block_merge", x, r, out, out_r, block_n, k, *geometry)
     block_merge_kv.launches += 1
     return out, out_r
 

@@ -7,7 +7,7 @@ sorts the last axis of any length >= 1: it pads to the next power of two with
   phase 1:  kernel A  (per-tile alternating-direction sort)
   stages k = 2*block_n .. n:
      j = k/2 .. block_n   : kernel C, one launch per substage
-     j = block_n/2 .. 1   : kernel B (one fused shared-memory pass)
+     j = block_n/2 .. 1   : kernel B (all of them in one pass, in registers)
 
 Leading dims are rows of the kernel grid (the reference ``vmap``s its 1-D
 kernels over them instead).  ``kernel_argsort`` runs the same network on

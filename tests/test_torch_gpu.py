@@ -5,6 +5,11 @@ Marked ``gpu``; every test takes the ``cuda`` fixture, which skips when no
 card is present.  Run on a machine with a card:
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +84,85 @@ def test_global_stage_kernels_match_plain(cuda, dtype, j, k):
     assert torch.equal(got_r.cpu(), want_r)
     assert kernels.launch_counts()["global_stage"] == 1
     assert kernels.launch_counts()["global_stage_kv"] == 1
+
+
+def _tie_keys(dtype, shape, seed):
+    """Duplicate-heavy keys, with -0.0 beside +0.0 for the float types."""
+    x = _keys(dtype, shape, seed, duplicates=True)
+    if dtype != torch.int32:
+        g = torch.Generator().manual_seed(seed + 1)
+        x = torch.where(torch.rand(shape, generator=g) < 0.3, torch.tensor(-0.0, dtype=dtype), x)
+    return x
+
+
+@pytest.mark.parametrize("block_n", [1 << i for i in range(kernels.MAX_BLOCK_N.bit_length())])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_merge_kernels_match_plain_at_every_tile_width(cuda, dtype, block_n):
+    # (3, 2 * block_n) leaves a ragged last chunk for the narrow tiles
+    launches = 0
+    for rows, n in ((3, 4 * kernels.MAX_BLOCK_N), (3, 2 * block_n)):
+        x = _tie_keys(dtype, (rows, n), seed=block_n)
+        r = torch.randperm(n, generator=torch.Generator().manual_seed(block_n), dtype=torch.int32)
+        r = r.expand(rows, n).contiguous()
+        for k in sorted(k for k in {2 * block_n, 4 * block_n, n} if k <= n):
+            got = kernels.block_merge(x.to(cuda), block_n, k)
+            _assert_same_bits(got, kernels.block_merge(x, block_n, k))
+            got, got_r = kernels.block_merge_kv(x.to(cuda), r.to(cuda), block_n, k)
+            want, want_r = kernels.block_merge_kv(x, r, block_n, k)
+            _assert_same_bits(got, want)
+            assert torch.equal(got_r.cpu(), want_r), f"rows={rows} n={n} k={k}"
+            launches += 1
+    assert kernels.launch_counts()["block_merge"] == kernels.launch_counts()["block_merge_kv"] == launches
+
+
+_WIDE_NARROW_WIDE = """
+import torch
+from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+for dtype in (torch.float32, torch.bfloat16):
+    n = 4 * kernels.MAX_BLOCK_N
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(2, n, generator=g) * 100).to(dtype)
+    r = torch.randperm(n, generator=g, dtype=torch.int32).expand(2, n).contiguous()
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    for block_n in (8192, 4096, 8192):
+        got, got_r = kernels.block_merge_kv(x.cuda(), r.cuda(), block_n, 2 * block_n)
+        want, want_r = kernels.block_merge_kv(x, r, block_n, 2 * block_n)
+        assert torch.equal(got.cpu().view(view), want.view(view)), (dtype, block_n)
+        assert torch.equal(got_r.cpu(), want_r), (dtype, block_n)
+"""
+
+
+def test_merge_kernel_takes_tile_widths_in_any_order(cuda):
+    # A kernel's shared-memory limit is state of the process: run a wide tile,
+    # a narrower one of the same instantiation, then the wide one again, in a
+    # fresh process that no earlier test has touched.
+    src = str(Path(kernels.__file__).resolve().parents[3])
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")]))}
+    proc = subprocess.run([sys.executable, "-c", _WIDE_NARROW_WIDE], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16], ids=str)
+def test_signed_zeros_through_a_descending_merge_tile(cuda, dtype):
+    x = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0, -0.0, 0.0, 2.0] * 4, dtype=dtype)
+    for block_n, k in ((8, 16), (16, 32)):  # the tiles at 16 .. 31 descend
+        _assert_same_bits(kernels.block_merge(x.to(cuda), block_n, k), kernels.block_merge(x, block_n, k))
+
+
+def test_misaligned_merge_input_raises(cuda):
+    n = 4096
+    aligned = torch.zeros(n, device=cuda)
+    shifted = torch.zeros(n + 1, device=cuda)[1:]  # contiguous, 4 bytes past 16
+    ranks = torch.arange(n, dtype=torch.int32, device=cuda)
+    shifted_ranks = torch.arange(n + 1, dtype=torch.int32, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.block_merge(shifted, 1024, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.block_merge_kv(shifted, ranks, 1024, n)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.block_merge_kv(aligned, shifted_ranks, 1024, n)
+    assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
 
 
 def test_signed_zeros_stay_in_network_order(cuda):

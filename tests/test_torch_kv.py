@@ -26,6 +26,7 @@ def test_argsort_matches_reference(impl, dtype, ascending):
     x = make_keys(dtype, (2, 300), seed=30, duplicates=True)
     got = kv.argsort(cpu(x), ascending=ascending, impl=impl, block_n=64)
     want = ref_kv.argsort(jnp.asarray(x), ascending=ascending, impl=_REF_IMPL[impl], block_n=64)
+    assert got.dtype == torch.int32 and np.asarray(want).dtype == np.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     order = x if ascending else -x.astype(np.float64)
     np.testing.assert_array_equal(got.numpy(), np.argsort(order, axis=-1, kind="stable"))
@@ -77,6 +78,7 @@ def test_topk_matches_reference_with_ties(impl, largest):
     want_v, want_i = ref_kv.topk(jnp.asarray(x), 20, largest=largest,
                                  impl=_REF_IMPL[impl], block_n=128)
     assert_bits_equal(got_v, want_v)
+    assert got_i.dtype == torch.int32 and np.asarray(want_i).dtype == np.int32
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     if largest:
         lax_v, lax_i = jax.lax.top_k(jnp.asarray(x), 20)
