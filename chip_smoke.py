@@ -8,9 +8,10 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
   build    the nvcc build of the kernels
   device   the card, its count, its name and power limit from nvidia-smi
   parity   every kernel against its plain torch version on the card, at
-           8 rows x 2^21 keys, block_n 1024 and MAX_BLOCK_N, for float32,
-           int32, float16 and bfloat16: compared bit for bit (B and B-kv at
-           stages k = 2 * block_n, 4 * block_n and 2^21)
+           8 rows x 2^21 keys, block_n 1024, MAX_BLOCK_N and 2 * MAX_BLOCK_N
+           (A, B and their kv twins composed from launches at the cap), for
+           float32, int32, float16 and bfloat16: compared bit for bit (B and
+           B-kv at stages k = 2 * block_n, 4 * block_n and 2^21)
   sort     repro_torch.sort of 10,000,000 float32 keys (model B, 8 tiles,
            local_impl="kernel"), both directions, against the plain bitonic
            network (bits) and torch.sort (values)
@@ -20,20 +21,21 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            impl="kernel" against impl="xla"
   block_n_sweep  the three paths' times at tile widths 1024, 4096, 16384
   paths    each path's time beside its library yardstick, and its device
-           kernel time and idle share from torch.profiler
+           kernel time and idle share from torch.profiler; torch.sort of
+           the 10M keys stable against unstable
   launch_host_us  host microseconds per wrapper call, back to back at a
            tiny shape (1 x 4096), where the device work is a few microseconds:
            the cost that bounds top-k
-  merge_variants  kernel B and B-kv at the main path's shapes under other
-           launch geometries than _merge_geometry's (one ring slot, two
-           tiles a block, 16 keys a thread), each bit-equal to the default
+  tile_variants  kernels A, A-kv, B and B-kv at the main path's shapes
+           under other launch geometries than _tile_geometry's (two tiles a
+           block, the next E), each bit-equal to the default
 
-then the kernels line (launches on the main path, time per launch, bound,
-plain and library times; the library time of A, B and their kv twins is
-torch.sort over the same tiles, which the port never calls) and, last, the
-ok line.  Any failed check raises, so the script exits nonzero and prints no
-ok line.  Times come from CUDA
-events after warm-up, averaged over the repetitions the lines name.
+then the kernels line (launches on the main path, time per launch, bound
+(the larger of the bytes' and the compare-exchanges' least time), its share, plain and library times; the library time of A, B and
+their kv twins is torch.sort over the same tiles, which the port never
+calls) and, last, the ok line.  Any failed check raises, so the script exits
+nonzero and prints no ok line.  Times come from CUDA events after warm-up,
+averaged over the repetitions the lines name.
 """
 import json
 import os
@@ -47,6 +49,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (same sheet)
 SORT_N = 10_000_000  # the largest size of the repo's paper figures (benchmarks/run.py)
 VOCAB = 151_936  # qwen3-0.6b's vocabulary (src/repro/configs/qwen3_0_6b.py)
 SOURCE = "src/repro_torch/kernels/bitonic_sort/csrc/bitonic_sort.cu"
@@ -99,6 +102,13 @@ def bytes_bound_ms(n: int, itemsize: int, ranks: bool) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def ops_bound_ms(n: int, substages: int, ranks: bool) -> float:
+    """n/2 compare-exchanges a substage, each a compare and two selects (three
+    compares and four selects with ranks), at the float32 rate: the data
+    sheet gives none for int32."""
+    return n // 2 * substages * (7 if ranks else 3) / F32_OPS_PER_S * 1e3
+
+
 def make_keys(dtype, shape, gen, device) -> torch.Tensor:
     if dtype == torch.int32:
         return torch.randint(0, 1 << 20, shape, generator=gen, device=device, dtype=torch.int32)
@@ -114,7 +124,7 @@ def phase_parity(kernels, device) -> dict:
     for dtype in (torch.float32, torch.int32, torch.float16, torch.bfloat16):
         x = make_keys(dtype, (rows, n), gen, device)
         r = torch.arange(n, dtype=torch.int32, device=device).expand(rows, n).contiguous()
-        for block_n in (1024, kernels.MAX_BLOCK_N):
+        for block_n in (1024, kernels.MAX_BLOCK_N, 2 * kernels.MAX_BLOCK_N):
             runs = {
                 "block_sort": (lambda: (kernels.block_sort(x, block_n), None),
                                lambda: kernels.plain_block_sort(x, None, block_n)),
@@ -128,7 +138,7 @@ def phase_parity(kernels, device) -> dict:
                 runs[f"block_merge_kv@{k}"] = (
                     lambda k=k: kernels.block_merge_kv(x, r, block_n, k),
                     lambda k=k: kernels.plain_block_merge(x, r, block_n, k))
-            for j, kk in ((block_n, 4 * block_n), (n // 2, n)):
+            for j, kk in ((block_n, 4 * block_n), (n // 2, n)) if block_n <= kernels.MAX_BLOCK_N else ():
                 runs[f"global_stage@{j},{kk}"] = (
                     lambda j=j, kk=kk: (kernels.global_stage(x, j, kk), None),
                     lambda j=j, kk=kk: kernels.plain_global_stage(x, None, j, kk))
@@ -146,7 +156,7 @@ def phase_parity(kernels, device) -> dict:
                 name = label.split("@")[0]
                 worst[name] = max(worst[name], max_abs_err(got, want))
                 cases += 1
-    return {"rows": rows, "n": n, "block_n": [1024, kernels.MAX_BLOCK_N],
+    return {"rows": rows, "n": n, "block_n": [1024, kernels.MAX_BLOCK_N, 2 * kernels.MAX_BLOCK_N],
             "merge_k": ["2*block_n", "4*block_n", n], "cases": cases,
             "bitwise_equal": True, "max_abs_err": worst}
 
@@ -220,40 +230,46 @@ def launch_host_us(kernels, device, calls: int = 200) -> dict:
     return out
 
 
-def merge_variants(kernels, xs, kv_keys, kv_r, bn: int) -> dict:
-    """Kernel B and B-kv at the main path's shapes under launch geometries
-    other than ``_merge_geometry``'s, each bit-equal to it.  These launches go
-    through the C entry point directly and count nowhere.  ``default`` is
-    timed first and last, to show the spread."""
+def tile_variants(kernels, xs, kv_keys, kv_r, bn: int) -> dict:
+    """Kernels A, A-kv, B and B-kv at the main path's shapes under launch
+    geometries other than ``_tile_geometry``'s, each bit-equal to it: the
+    two tiles a block and the next E (16 for A, whose E is 32 already).  These launches go through the C entry
+    point directly and count nowhere.  ``default`` is timed first and last,
+    to show the spread."""
     out = {}
-    for label, x, r in (("block_merge", xs, None), ("block_merge_kv", kv_keys, kv_r)):
+    for label, x, r, sort in (("block_sort", xs, None, True), ("block_sort_kv", kv_keys, kv_r, True),
+                              ("block_merge", xs, None, False), ("block_merge_kv", kv_keys, kv_r, False)):
         k = x.shape[-1]
+        stages = (2, bn, bn) if sort else (k, k, 0)  # (k_first, k_last, parity mask)
         item = x.element_size() + (0 if r is None else 4)
-        base = kernels._merge_geometry(bn, x.element_size(), r is not None)
+        base = kernels._tile_geometry(bn, x.element_size(), r is not None, sort)
 
-        def geometry(t, e, per_block, slots):
-            return kernels.MergeGeometry(t, e, per_block, slots,
-                                         slots * per_block * bn * item + kernels._MERGE_BARRIER_BYTES)
+        def geometry(e, per_block):
+            return kernels.TileGeometry(bn // e, e, per_block,
+                                        per_block * bn * item + kernels._TILE_BARRIER_BYTES)
 
-        t, e, per_block, slots, _ = base
+        _, e, per_block, _ = base
+        next_e = 16 if e == 32 else 2 * e
         variants = {
             "default": base,
-            "one_slot": geometry(t, e, per_block, 1),
-            "two_tiles_a_block": geometry(t, e, 2 * per_block, slots),
-            "16_keys_a_thread": geometry(bn // 16, 16, 2 * per_block, slots),
+            "two_tiles_a_block": geometry(e, 2 * per_block),
+            f"{next_e}_keys_a_thread": geometry(next_e, max(1, 128 // (bn // next_e))),
             "default_again": base,
         }
-        want = kernels.block_merge(x, bn, k) if r is None else kernels.block_merge_kv(x, r, bn, k)[0]
+        want = None
         times = {}
         for name, g in variants.items():
             ox, orank = torch.empty_like(x), None if r is None else torch.empty_like(r)
 
             def run(g=g, ox=ox, orank=orank):
-                kernels._launch("bitonic_block_merge", x, r, ox, orank, bn, k, *g)
+                kernels._launch("bitonic_tile_network", x, r, ox, orank, bn, *stages, *g)
 
             run()
             torch.cuda.synchronize()
-            check(same_bits(ox, want), f"{label} variant {name}: differs from the default geometry")
+            if want is None:
+                want, want_r = ox, orank
+            check(same_bits(ox, want) and (r is None or torch.equal(orank, want_r)),
+                  f"{label} variant {name}: differs from the default geometry")
             times[name] = {"geometry": list(g), "ms": time_ms(run, reps=20)}
         out[label] = times
     return out
@@ -359,6 +375,9 @@ def main() -> None:
         "topk": (lambda: engine.topk(logits, 50, impl="kernel"), lambda: torch.topk(logits, 50)),
     }
     path_ms = {}
+    # the library sort the port's impl='xla' calls is the stable one
+    torch_sort_10m = {"unstable_ms": time_ms(lambda: torch.sort(x), reps=5),
+                      "stable_ms": time_ms(lambda: torch.sort(x, stable=True), reps=5), "reps": 5}
     for label, (ours, library) in paths.items():
         ms = time_ms(ours, reps=5)
         prof = device_profile(ours)
@@ -377,7 +396,8 @@ def main() -> None:
         }
     emit({"phase": "block_n_sweep", "reps": 3, "times": sweep})
     emit({"phase": "paths", "library": {"sort": "torch.sort", "argsort": "torch.argsort(stable=True)",
-                                        "topk": "torch.topk"}, "times": path_ms})
+                                        "topk": "torch.topk"}, "times": path_ms,
+          "torch_sort_10m": torch_sort_10m})
 
     # -- per-launch times at the main path's shapes
     rows, n, bn = 8, 1 << 21, 1024  # model B's tiles of the 10M sort
@@ -393,28 +413,33 @@ def main() -> None:
     def tile_sort_kv():
         return torch.sort(kv_keys.view(-1, bn), dim=-1, stable=True)
 
+    log_bn = bn.bit_length() - 1
+    sort_substages = log_bn * (log_bn + 1) // 2  # kernel A's stages 2 .. bn
     timed = {
         "block_sort": ((lambda: kernels.block_sort(xs, bn)),
                        (lambda: kernels.plain_block_sort(xs, None, bn)), tile_sort,
-                       rows * n, 4, False),
+                       rows * n, 4, False, sort_substages),
         "block_merge": ((lambda: kernels.block_merge(xs, bn, n)),
                         (lambda: kernels.plain_block_merge(xs, None, bn, n)), tile_sort,
-                        rows * n, 4, False),
+                        rows * n, 4, False, log_bn),
         "global_stage": ((lambda: kernels.global_stage(xs, n // 2, n)),
                          (lambda: kernels.plain_global_stage(xs, None, n // 2, n)), None,
-                         rows * n, 4, False),
+                         rows * n, 4, False, 1),
         "block_sort_kv": ((lambda: kernels.block_sort_kv(kv_keys, kv_r, bn)),
                           (lambda: kernels.plain_block_sort(kv_keys, kv_r, bn)), tile_sort_kv,
-                          1 << 24, 4, True),
+                          1 << 24, 4, True, sort_substages),
         "block_merge_kv": ((lambda: kernels.block_merge_kv(kv_keys, kv_r, bn, 1 << 24)),
                            (lambda: kernels.plain_block_merge(kv_keys, kv_r, bn, 1 << 24)),
-                           tile_sort_kv, 1 << 24, 4, True),
+                           tile_sort_kv, 1 << 24, 4, True, log_bn),
         "global_stage_kv": ((lambda: kernels.global_stage_kv(kv_keys, kv_r, 1 << 23, 1 << 24)),
                             (lambda: kernels.plain_global_stage(kv_keys, kv_r, 1 << 23, 1 << 24)),
-                            None, 1 << 24, 4, True),
+                            None, 1 << 24, 4, True, 1),
     }
     entries = []
-    for kname, (kernel_fn, plain_fn, library_fn, elems, itemsize, ranks) in timed.items():
+    for kname, (kernel_fn, plain_fn, library_fn, elems, itemsize, ranks, substages) in timed.items():
+        ms = time_ms(kernel_fn, reps=20)
+        by_bytes, by_ops = bytes_bound_ms(elems, itemsize, ranks), ops_bound_ms(elems, substages, ranks)
+        bound = max(by_bytes, by_ops)
         entries.append({
             "name": kname,
             "route": "cuda",
@@ -422,10 +447,13 @@ def main() -> None:
             "replaces": REPLACES[kname],
             "launches": launches[kname],
             "max_abs_err": parity["max_abs_err"][kname],
-            "ms": time_ms(kernel_fn, reps=20),
+            "ms": ms,
             "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
-            "bound_ms": bytes_bound_ms(elems, itemsize, ranks),
-            "bound_by": "bytes",
+            "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_bound_ms": by_bytes,
+            "ops_bound_ms": by_ops,
+            "share": bound / ms,
             "library_ms": None if library_fn is None else time_ms(library_fn, reps=20),
             "shape": [rows, n] if not ranks else [1, 1 << 24],
             "dtype": "float32" if not ranks else "int32+int32 ranks",
@@ -445,8 +473,8 @@ def main() -> None:
                      lambda: kernels.global_stage_kv(tk_keys, tk_r, 1 << 17, 1 << 18), reps=20)}})
     emit({"phase": "launch_host_us", "shape": [1, 4096], "block_n": 1024, "calls": 200,
           "us": launch_host_us(kernels, device)})
-    emit({"phase": "merge_variants", "block_n": bn, "reps": 20,
-          **merge_variants(kernels, xs, kv_keys, kv_r, bn)})
+    emit({"phase": "tile_variants", "block_n": bn, "reps": 20,
+          **tile_variants(kernels, xs, kv_keys, kv_r, bn)})
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -109,7 +109,9 @@ def fast_local_sort(
 ) -> torch.Tensor:
     """The "sequential Quicksort" role: fastest single-worker sort available.
 
-    impl='xla'     -> ``torch.sort`` (the platform's library sort)
+    impl='xla'     -> ``torch.sort(stable=True)`` (the platform's library
+                      sort; stable, as ``jnp.sort`` is, so equal keys such
+                      as -0.0 and +0.0 keep their order bit for bit)
     impl='bitonic' -> the branch-free network, plain torch
     impl='kernel'  -> the same network as hand-written CUDA kernels
                       (``block_n`` is the shared-memory tile width)
@@ -122,7 +124,7 @@ def fast_local_sort(
     [3, 2, 1]
     """
     if impl == "xla":
-        out = torch.sort(x, dim=-1).values
+        out = torch.sort(x, dim=-1, stable=True).values
         return out if ascending else torch.flip(out, dims=(-1,))
     if impl == "bitonic":
         return bitonic_sort(x, ascending=ascending)

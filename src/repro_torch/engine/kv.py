@@ -4,7 +4,8 @@ Counterpart of the local half of ``repro/engine/kv.py`` (``mesh=None``).
 Every call sorts the last axis, with any leading batch dims, through a stable
 argsort and gathers by it: ``impl='xla'`` is ``torch.sort(stable=True)``,
 ``impl='kernel'`` the hand-written CUDA (key, rank) network; both return
-int32 indices, as the reference's ``jnp.argsort`` does.  ``values`` is a dict of tensors shaped
+int32 indices, as the reference's ``jnp.argsort`` does.  ``values`` is any
+nest of dicts, lists and tuples (the reference's pytree) of tensors shaped
 like the keys plus optional trailing dims.  The mesh path (model D with a
 payload) is a later slice: ``mesh=`` raises ``NotImplementedError``.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.carry import as_tensor
 
@@ -24,11 +26,18 @@ __all__ = ["sort_kv", "sort_pairs", "argsort", "topk"]
 _MESH_NOT_PORTED = "the mesh kv path is not ported yet: ROADMAP Queue 1 item 5"
 
 
+# torch has no bitwise NOT or gather for these: take them on the same bits as signed
+_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
 def _rev_key(keys: torch.Tensor) -> torch.Tensor:
     """Order-reversing self-inverse bijection: negation for floats, bitwise
-    NOT for ints (~x = -x-1 is strictly decreasing; even INT_MIN is safe)."""
+    NOT for ints (~x = -x-1 is strictly decreasing; even INT_MIN is safe;
+    unsigned, ~x = MAX - x)."""
     if keys.dtype.is_floating_point:
         return -keys
+    if keys.dtype in _SIGNED_TWIN:
+        return (~keys.view(_SIGNED_TWIN[keys.dtype])).view(keys.dtype)
     return ~keys
 
 
@@ -59,12 +68,14 @@ def _gather_last(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Index ``v`` (shaped like keys + optional trailing dims) by ``order``."""
     extra = v.dim() - order.dim()
     idx = order.long().reshape(order.shape + (1,) * extra).expand(order.shape + v.shape[order.dim():])
+    if v.dtype in _SIGNED_TWIN:
+        return torch.gather(v.view(_SIGNED_TWIN[v.dtype]), order.dim() - 1, idx).view(v.dtype)
     return torch.gather(v, order.dim() - 1, idx)
 
 
 def sort_kv(
     keys,
-    values: dict,
+    values,
     *,
     mesh=None,
     axis: Optional[str] = None,
@@ -73,7 +84,8 @@ def sort_kv(
     block_n: Optional[int] = None,
     device="cuda",
 ):
-    """Stable sort of ``keys`` carrying a dict of ``values`` along.
+    """Stable sort of ``keys`` carrying a nest of ``values`` along; the
+    values come back in the same structure.
 
     >>> k, v = sort_kv(torch.tensor([3, 1, 2]), {"p": torch.tensor([0, 1, 2])})
     >>> v["p"].tolist()
@@ -82,20 +94,20 @@ def sort_kv(
     if mesh is not None:
         raise NotImplementedError(_MESH_NOT_PORTED)
     keys = as_tensor(keys, device)
-    values = {name: as_tensor(v, keys.device) for name, v in values.items()}
+    values = tree_map(lambda v: as_tensor(v, keys.device), values)
     order = _order_keys(keys, ascending=ascending, impl=impl, block_n=block_n)
-    return _gather_last(keys, order), {name: _gather_last(v, order) for name, v in values.items()}
+    return _gather_last(keys, order), tree_map(lambda v: _gather_last(v, order), values)
 
 
 def sort_pairs(keys, values, **kwargs):
-    """(keys, values) -> (sorted_keys, aligned_values) for one payload tensor.
+    """(keys, values) -> (sorted_keys, aligned_values) for one payload tensor
+    (or one nest of them).
 
     >>> k, v = sort_pairs(torch.tensor([2, 1]), torch.tensor([10, 20]))
     >>> v.tolist()
     [20, 10]
     """
-    k, v = sort_kv(keys, {"v": values}, **kwargs)
-    return k, v["v"]
+    return sort_kv(keys, values, **kwargs)
 
 
 def argsort(
@@ -140,4 +152,4 @@ def topk(
     """
     x = as_tensor(x, device)
     top_idx = _order_keys(x, ascending=not largest, impl=impl, block_n=block_n)[..., :k]
-    return torch.gather(x, -1, top_idx.long()), top_idx
+    return _gather_last(x, top_idx), top_idx

@@ -8,9 +8,11 @@ loads it with ``ctypes``, and wraps each kernel:
   A     block_sort     / block_sort_kv     per-tile full network, tile b of a
                                            row ascending iff b is even
   B     block_merge    / block_merge_kv    substages j = block_n/2 .. 1 of one
-                                           stage k > block_n, fused per tile, in
-                                           registers (``_merge_geometry``)
+                                           stage k > block_n, fused per tile
   C     global_stage   / global_stage_kv   one cross-tile substage j >= block_n
+
+A and B are one CUDA kernel body (``tile_network``) that holds a tile in
+registers and runs stages k_first .. k_last of it (``_tile_geometry``).
 
 Every wrapper takes a contiguous tensor whose last axis (length n, a power of
 two) is sorted row by row; the leading dims are rows of the kernel grid.  The
@@ -21,11 +23,12 @@ A wrapper runs where its tensor lives: on a CUDA tensor it launches the
 kernel (and adds one to its ``launches`` count) or raises; on a CPU tensor it
 runs the plain torch version of the same network, which repeats the kernel's
 arithmetic step by step.  Keys may be float32, int32, float16 or bfloat16.
-Tiles hold at most ``MAX_BLOCK_N`` keys (one CUDA block's shared memory; the
-TPU's VMEM took larger tiles).  NaN keys give unspecified output, as in the
-reference.  Kernel B bulk-copies its inputs, so on the card they must start
-on a 16-byte boundary (``ValueError`` otherwise); every tensor the sort
-paths hand it is a fresh allocation.
+One launch of A or B holds tiles of at most ``MAX_BLOCK_N`` keys (one CUDA
+block's shared memory); a wider power-of-two ``block_n`` is composed from
+launches at the cap (``_tile_launches``), as the TPU's VMEM took it whole.
+NaN keys give unspecified output, as in the reference.  A and B bulk-copy
+their inputs, so on the card these must start on a 16-byte boundary
+(``ValueError`` otherwise); ``ops.py`` copies a caller's view that does not.
 """
 from __future__ import annotations
 
@@ -60,8 +63,8 @@ __all__ = [
 # f32 keys + int32 ranks at 16384 is 128 KiB of the 227 KiB a block may use
 MAX_BLOCK_N = 16384
 _SMEM_PER_BLOCK = 232_448  # dynamic shared memory one sm_90 block may use
-_MERGE_MIN_THREADS = 128  # narrower tiles are packed several to a merge block
-_MERGE_BARRIER_BYTES = 16  # the merge kernel's two mbarriers, after its ring
+_TILE_MIN_THREADS = 128  # narrower tiles are packed several to a block
+_TILE_BARRIER_BYTES = 8  # the tile kernel's mbarrier, after its slot
 
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.float16: 2, torch.bfloat16: 3}
 
@@ -105,12 +108,11 @@ def build() -> tuple[Path, str]:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.bitonic_block_sort.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-    lib.bitonic_block_merge.argtypes = [
-        i32, ptr, ptr, ptr, ptr, i64, i64, i32, i64, i32, i32, i32, i32, i32, ptr,
+    lib.bitonic_tile_network.argtypes = [
+        i32, ptr, ptr, ptr, ptr, i64, i64, i32, i64, i64, i64, i32, i32, i32, i32, ptr,
     ]
-    lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, ptr]
-    for fn in (lib.bitonic_block_sort, lib.bitonic_block_merge, lib.bitonic_global_stage):
+    lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
+    for fn in (lib.bitonic_tile_network, lib.bitonic_global_stage):
         fn.restype = i32
     lib.bitonic_error_string.argtypes = [i32]
     lib.bitonic_error_string.restype = ctypes.c_char_p
@@ -147,48 +149,49 @@ def _check(x: torch.Tensor, r: torch.Tensor | None, block_n: int | None = None) 
     if block_n is not None:
         if not _is_pow2(block_n) or block_n > n:
             raise ValueError(f"block_n={block_n} must be a power of two <= n={n}")
-        if block_n > MAX_BLOCK_N:
-            raise ValueError(
-                f"block_n={block_n} exceeds MAX_BLOCK_N={MAX_BLOCK_N}: a tile must fit "
-                "one CUDA block's shared memory"
-            )
     return n
 
 
-class MergeGeometry(NamedTuple):
-    """Launch geometry of kernel B for one tile width (see ``_merge_geometry``)."""
+class TileGeometry(NamedTuple):
+    """Launch geometry of kernels A and B for one tile width (see ``_tile_geometry``)."""
 
     threads_per_tile: int  # T
     elems_per_thread: int  # E, with T * E == block_n
     tiles_per_block: int
-    slots: int  # chunks of tiles_per_block tiles the block's ring holds
     smem_bytes: int
 
 
 @functools.cache
-def _merge_geometry(block_n: int, itemsize: int, has_rank: bool) -> MergeGeometry:
-    """Kernel B's geometry for ``block_n`` keys of ``itemsize`` bytes.
+def _tile_geometry(block_n: int, itemsize: int, has_rank: bool, sort: bool) -> TileGeometry:
+    """The tile kernel's geometry for ``block_n`` keys of ``itemsize`` bytes,
+    for kernel A (``sort``) or B.
 
-    T threads hold E keys each in registers.  Every substage j < T after the
-    transpose is a warp shuffle at lane distance j / E, so T <= 32 * E: the
-    smallest E in (8, 16, 32) with block_n <= 32 * E**2 (E = block_n below 8).
-    Tiles of fewer than 128 threads are packed into blocks of 128.  The ring
-    holds two chunks of tiles when they fit in a block's shared memory, else
-    one (16384 keys with ranks)."""
-    e = min(block_n, next(e for e in (8, 16, 32) if block_n <= 32 * e * e))
+    T threads hold E keys each in registers.  Every substage j < T in the
+    contiguous layout is a warp shuffle at lane distance j / E, so T <= 32 * E.
+    B, bound by bytes, takes the smallest E in (8, 16, 32) with
+    block_n <= 32 * E**2, which keeps the most blocks in flight; A, bound by
+    its compare-exchanges, takes E = 32, which turns shuffles into register
+    compare-exchanges (E = block_n below 8, resp. 32).  Tiles of fewer than 128
+    threads are packed into blocks of 128.  The block's shared memory holds
+    one chunk of tiles: the next chunk's bulk copy starts once the tile's last
+    shared-memory read is done."""
+    if sort:
+        e = min(block_n, 32)
+    else:
+        e = min(block_n, next(e for e in (8, 16, 32) if block_n <= 32 * e * e))
     t = block_n // e
-    tiles_per_block = max(1, _MERGE_MIN_THREADS // t)
+    tiles_per_block = max(1, _TILE_MIN_THREADS // t)
     slot = tiles_per_block * block_n * (itemsize + (4 if has_rank else 0))
-    slots = 2 if 2 * slot + _MERGE_BARRIER_BYTES <= _SMEM_PER_BLOCK else 1
-    return MergeGeometry(t, e, tiles_per_block, slots, slots * slot + _MERGE_BARRIER_BYTES)
+    return TileGeometry(t, e, tiles_per_block, slot + _TILE_BARRIER_BYTES)
 
 
 def _check_aligned(*tensors) -> None:
-    """Kernel B bulk-copies its inputs: each must start on 16 bytes."""
+    """Kernels A and B bulk-copy their inputs: each must start on 16 bytes
+    (None, for absent ranks, is skipped)."""
     for t in tensors:
-        if t.data_ptr() % 16:
+        if t is not None and t.data_ptr() % 16:
             raise ValueError(
-                "block_merge needs inputs that start on a 16-byte boundary "
+                "block_sort and block_merge need inputs that start on a 16-byte boundary "
                 f"(data_ptr % 16 = {t.data_ptr() % 16}); pass a fresh contiguous tensor"
             )
 
@@ -233,6 +236,13 @@ def _group_starts(n: int, j: int, device) -> torch.Tensor:
     return torch.arange(n // (2 * j), device=device, dtype=torch.int64) * (2 * j)
 
 
+def _directions(i, k: int, f: int):
+    """Up or down for the pairs whose lower element has row index ``i``, at
+    stage k with parity mask f: ((i & k & (f-1)) == 0) == ((i & f) == 0).
+    f = block_n is kernel A's rule, f = 0 that of B and C."""
+    return ((i & k & (f - 1)) == 0) == ((i & f) == 0)
+
+
 def plain_block_sort(x, r, block_n: int):
     """Kernel A (``r`` None) or A-kv in plain torch, on any device -> (x, r)."""
     n = x.shape[-1]
@@ -240,9 +250,7 @@ def plain_block_sort(x, r, block_n: int):
     while k <= block_n:
         j = k // 2
         while j >= 1:
-            i = _group_starts(n, j, x.device)
-            asc = (i // block_n) % 2 == 0  # tile parity within the row
-            x, r = _ce_plain(x, r, j, (((i % block_n) & k) == 0) == asc)
+            x, r = _ce_plain(x, r, j, _directions(_group_starts(n, j, x.device), k, block_n))
             j //= 2
         k *= 2
     return x, r
@@ -253,16 +261,15 @@ def plain_block_merge(x, r, block_n: int, k: int):
     n = x.shape[-1]
     j = block_n // 2
     while j >= 1:
-        i = _group_starts(n, j, x.device)
-        x, r = _ce_plain(x, r, j, (((i // block_n) * block_n) & k) == 0)
+        x, r = _ce_plain(x, r, j, _directions(_group_starts(n, j, x.device), k, 0))
         j //= 2
     return x, r
 
 
-def plain_global_stage(x, r, j: int, k: int):
-    """Kernel C or C-kv in plain torch, on any device -> (x, r)."""
-    i = _group_starts(x.shape[-1], j, x.device)
-    return _ce_plain(x, r, j, (i & k) == 0)
+def plain_global_stage(x, r, j: int, k: int, f: int = 0):
+    """Kernel C or C-kv in plain torch, on any device -> (x, r); ``f`` is the
+    parity mask of a tile above the cap (``_tile_launches``)."""
+    return _ce_plain(x, r, j, _directions(_group_starts(x.shape[-1], j, x.device), k, f))
 
 
 def _check_stage(n: int, j: int, k: int) -> None:
@@ -270,17 +277,71 @@ def _check_stage(n: int, j: int, k: int) -> None:
         raise ValueError(f"need powers of two with 2*j <= k <= n, got j={j} k={k} n={n}")
 
 
+@functools.cache
+def _tile_launches(block_n: int, k: int | None, cap: int = MAX_BLOCK_N) -> tuple:
+    """The launches that make up kernel A (``k`` None) or kernel B at stage
+    ``k`` on tiles of ``block_n`` keys: ``(kernel, width, k_first, k_last,
+    f)`` for a tile launch, kernel "sort" (A, stages 2 .. width) or "merge"
+    (B, the one stage k), and ``("global", j, k, f)`` for kernel C.
+
+    Up to ``cap`` this is one launch.  A wider tile W runs A at the cap with
+    parity mask f = W, then each stage k = 2*cap .. W as C for j = k/2 .. cap
+    and B at the cap, all with f = W; B on W-wide tiles is C for
+    j = W/2 .. cap, then B at the cap."""
+    if block_n <= cap:
+        return (("sort", block_n, 2, block_n, block_n),) if k is None else (("merge", block_n, k, k, 0),)
+    steps, f = [], 0
+    if k is None:
+        steps.append(("sort", cap, 2, cap, block_n))
+        stages, f = [1 << s for s in range(cap.bit_length(), block_n.bit_length())], block_n
+    else:
+        stages = [k]
+    for kk in stages:
+        j = min(kk, block_n) // 2
+        while j >= cap:
+            steps.append(("global", j, kk, f))
+            j //= 2
+        steps.append(("merge", cap, kk, kk, f))
+    return tuple(steps)
+
+
 # ------------------------------------------------------------------ wrappers ---
+def _launch_tile(x, r, kind: str, block_n: int, k_first: int, k_last: int, f: int):
+    """One launch of the tile kernel as A (``kind`` "sort") or B ("merge"),
+    counted on the wrapper of that kernel."""
+    out, out_r = torch.empty_like(x), None if r is None else torch.empty_like(r)
+    geometry = _tile_geometry(block_n, x.element_size(), r is not None, kind == "sort")
+    _launch("bitonic_tile_network", x, r, out, out_r, block_n, k_first, k_last, f, *geometry)
+    counted = {"sort": (block_sort, block_sort_kv), "merge": (block_merge, block_merge_kv)}[kind]
+    counted[r is not None].launches += 1
+    return out, out_r
+
+
+def _launch_global(x, r, j: int, k: int, f: int):
+    out, out_r = torch.empty_like(x), None if r is None else torch.empty_like(r)
+    _launch("bitonic_global_stage", x, r, out, out_r, j, k, f)
+    (global_stage if r is None else global_stage_kv).launches += 1
+    return out, out_r
+
+
+def _run_tiles(x, r, block_n: int, k: int | None):
+    """Kernel A (k None) or B on the card, through ``_tile_launches``."""
+    _check_aligned(x, r)
+    for kind, *args in _tile_launches(block_n, k):
+        if kind == "global":
+            x, r = _launch_global(x, r, *args)
+        else:
+            x, r = _launch_tile(x, r, kind, *args)
+    return x, r
+
+
 def block_sort(x: torch.Tensor, block_n: int) -> torch.Tensor:
     """Kernel A: sort every aligned ``block_n`` tile of each row, tile b of a
     row ascending iff b is even (replaces ``_block_sort_kernel``)."""
     _check(x, None, block_n)
     if not _on_cuda(x):
         return plain_block_sort(x, None, block_n)[0]
-    out = torch.empty_like(x)
-    _launch("bitonic_block_sort", x, None, out, None, block_n)
-    block_sort.launches += 1
-    return out
+    return _run_tiles(x, None, block_n, None)[0]
 
 
 def block_merge(x: torch.Tensor, block_n: int, k: int) -> torch.Tensor:
@@ -290,12 +351,7 @@ def block_merge(x: torch.Tensor, block_n: int, k: int) -> torch.Tensor:
     _check_stage(n, block_n, k)
     if not _on_cuda(x):
         return plain_block_merge(x, None, block_n, k)[0]
-    _check_aligned(x)
-    out = torch.empty_like(x)
-    geometry = _merge_geometry(block_n, x.element_size(), False)
-    _launch("bitonic_block_merge", x, None, out, None, block_n, k, *geometry)
-    block_merge.launches += 1
-    return out
+    return _run_tiles(x, None, block_n, k)[0]
 
 
 def global_stage(x: torch.Tensor, j: int, k: int) -> torch.Tensor:
@@ -306,10 +362,7 @@ def global_stage(x: torch.Tensor, j: int, k: int) -> torch.Tensor:
     _check_stage(n, j, k)
     if not _on_cuda(x):
         return plain_global_stage(x, None, j, k)[0]
-    out = torch.empty_like(x)
-    _launch("bitonic_global_stage", x, None, out, None, j, k)
-    global_stage.launches += 1
-    return out
+    return _launch_global(x, None, j, k, 0)[0]
 
 
 def block_sort_kv(x: torch.Tensor, r: torch.Tensor, block_n: int):
@@ -318,10 +371,7 @@ def block_sort_kv(x: torch.Tensor, r: torch.Tensor, block_n: int):
     _check(x, r, block_n)
     if not _on_cuda(x):
         return plain_block_sort(x, r, block_n)
-    out, out_r = torch.empty_like(x), torch.empty_like(r)
-    _launch("bitonic_block_sort", x, r, out, out_r, block_n)
-    block_sort_kv.launches += 1
-    return out, out_r
+    return _run_tiles(x, r, block_n, None)
 
 
 def block_merge_kv(x: torch.Tensor, r: torch.Tensor, block_n: int, k: int):
@@ -331,12 +381,7 @@ def block_merge_kv(x: torch.Tensor, r: torch.Tensor, block_n: int, k: int):
     _check_stage(n, block_n, k)
     if not _on_cuda(x):
         return plain_block_merge(x, r, block_n, k)
-    _check_aligned(x, r)
-    out, out_r = torch.empty_like(x), torch.empty_like(r)
-    geometry = _merge_geometry(block_n, x.element_size(), True)
-    _launch("bitonic_block_merge", x, r, out, out_r, block_n, k, *geometry)
-    block_merge_kv.launches += 1
-    return out, out_r
+    return _run_tiles(x, r, block_n, k)
 
 
 def global_stage_kv(x: torch.Tensor, r: torch.Tensor, j: int, k: int):
@@ -346,10 +391,7 @@ def global_stage_kv(x: torch.Tensor, r: torch.Tensor, j: int, k: int):
     _check_stage(n, j, k)
     if not _on_cuda(x):
         return plain_global_stage(x, r, j, k)
-    out, out_r = torch.empty_like(x), torch.empty_like(r)
-    _launch("bitonic_global_stage", x, r, out, out_r, j, k)
-    global_stage_kv.launches += 1
-    return out, out_r
+    return _launch_global(x, r, j, k, 0)
 
 
 KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv, global_stage_kv)

@@ -14,43 +14,61 @@
 // __bfloat162float; only the comparison converts, the stored bits move untouched.
 // NaN keys give unspecified output, as in the reference.
 //
+// Direction.  The pair whose lower element has index i within its row sorts up
+// at stage k iff ((i & k & (f - 1)) == 0) == ((i & f) == 0), with f the parity
+// mask: f = block_n makes it kernel A's rule (tile b of a row ascending iff b is
+// even, as the reference's vmap gives it), f = 0 the rule of B and C
+// ((i & k) == 0), and f = W > block_n lets capped launches compose the network
+// of one W-wide tile (bitonic_sort.py:_tile_launches).
+//
 // Bound: each launch reads its keys (and ranks) once and writes them once,
-// 2*n*sizeof(key) bytes (+ 2*n*4 with ranks); the compare-exchanges are a few
-// integer/float ops per element per substage, far below the card's op rate, so
-// every kernel is bound by bytes (3.35 TB/s on an H100 SXM).
+// 2*n*sizeof(key) bytes (+ 2*n*4 with ranks).  Its compare-exchanges (a compare
+// and two selects a pair and substage, three compares and four selects with
+// ranks) take less time than that at the card's peak op rate, so the least time
+// of every kernel is its bytes over 3.35 TB/s (H100 SXM).  A and A-kv reach a
+// fraction of it all the same: with 55 substages a tile at block_n 1024, what
+// holds them back is issuing those compare-exchanges, not memory.
 //
-// A / A-kv (block_kernel): one CUDA block per block_n tile; the tile (ranks
-//   first, then keys, so the int32 ranks stay aligned) lives in dynamic shared
-//   memory; each thread does block_n / 2 / blockDim.x compare-exchanges per
-//   substage, with __syncthreads() between substages.  Tiles over 48 KiB raise
-//   the dynamic shared memory limit with cudaFuncSetAttribute.  The tile index
-//   is folded over (row, block) into blockIdx.x; a block's direction comes from
-//   its index *within its row*, as the reference computes it under vmap.
-//
-// B / B-kv (merge_kernel): the log2(block_n) substages of one tile are a few
-//   operations per byte, so the kernel has to move the tile at the memory's
-//   rate and keep the network out of its way.  A network that makes one pass
-//   through shared memory per substage (with a barrier, half the threads idle)
-//   does not: it reached a third of the byte rate.  So the tile lives in
-//   registers, T threads holding E keys (and ranks) each, T * E = block_n:
-//   - strided layout, thread t holds elements t + T*e: every substage j >= T is
-//     a compare-exchange between two registers of one thread;
-//   - one transpose through shared memory into the contiguous layout, thread t
-//     holding E*t + e; the buffer is XOR-swizzled inside each E-element group
-//     by its 128-byte row, so the strided write (a warp on 32 neighbours) and
-//     the contiguous read (lane l on element E*l + e) hit 32 different banks;
-//   - E <= j < T is a __shfl_xor_sync at lane distance j/E (T <= 32*E keeps the
-//     partner in the warp); both lanes compute gt with the lower index's element
-//     as `a`, so they agree on ties and +-0 lands where the plain network puts it;
-//   - j < E is again between registers.
+// A / B (tile_network; entry points sort_kernel, merge_kernel): stages
+//   k_first .. k_last of every block_n tile, each stage k the substages
+//   j = min(k, block_n)/2 .. 1.  Kernel A is stages 2 .. block_n (55 substages
+//   at 1024), kernel B the one stage k > block_n.  A network that makes one
+//   pass through shared memory per substage, with a barrier and half the
+//   threads idle, reached a third of the byte rate for B and a tenth for A.
+//   So the tile lives in registers, T threads holding E keys (and ranks) each,
+//   T * E = block_n, in one of two layouts:
+//   - contiguous, thread t holding E*t + e: substages j < E are between two
+//     registers of a thread, E <= j < T a __shfl_xor_sync at lane distance j/E
+//     (T <= 32*E keeps the partner in the warp); both lanes compute gt with the
+//     lower index's element as `a`, so they agree on ties and +-0 lands where
+//     the plain network puts it;
+//   - strided, thread t holding t + T*e: substages j >= T are between two
+//     registers of a thread.
+//   A stage with substages j >= T moves the tile contiguous -> strided -> back
+//   through shared memory, XOR-swizzled inside each E-element group by its
+//   128-byte row, so that the strided side (a warp on 32 neighbours) and the
+//   contiguous side (lane l on E*l + e) hit 32 different banks.  B runs one
+//   such transpose.  A is held back by its compare-exchanges, not by bytes, and
+//   a register compare-exchange is half the work per key of a shuffled one, so A
+//   takes E = 32: at block_n 1024 (T 32) it runs 40 substages in registers, 15
+//   strided and none as shuffles, with 10 transposes.  Directions are one per
+//   thread where the layout allows it and per register index elsewhere, from
+//   the element's index in the layout that holds it.
 //   Tiles arrive by 1-D bulk copies (cp.async.bulk, completion on an mbarrier)
-//   into a ring of one or two slots of a persistent block, so the next tile
-//   loads while this one runs its network; stores are 16-byte vectors from the
-//   contiguous registers.  Tiles narrower than 128 threads' worth are packed
-//   several to a block; a tile's direction comes from its flat start index.  A
-//   ragged last chunk whose size is not a multiple of 16 bytes is loaded by the
-//   block itself.  The geometry (T, E, tiles per block, slots, shared bytes)
-//   comes from bitonic_sort.py:_merge_geometry and is validated here.
+//   into the one slot of a persistent block; the next chunk's copy starts as
+//   soon as the tile's last shared-memory read is done, so it loads while this
+//   tile finishes its network in registers and stores (a second slot was never
+//   faster).  B reads the slot in the strided layout (lane l on word l: no
+//   conflict).  A reads it contiguous as 16-byte vectors, the cheapest way to
+//   take E contiguous keys from the linear order of a bulk copy: a scalar read
+//   would stride E words and conflict E ways; the 16-byte words of one thread
+//   are read in an order XORed with the lane, so that the 8 lanes of each
+//   quarter-warp phase hit 8 different 16-byte bank groups.  Stores are 16-byte
+//   vectors from the contiguous registers.  Tiles narrower than 128 threads'
+//   worth are packed several to a block.  A ragged last chunk whose size is not
+//   a multiple of 16 bytes is loaded by the block itself.  The geometry (T, E,
+//   tiles per block, shared bytes) comes from bitonic_sort.py:_tile_geometry
+//   and is validated here.
 //
 // C / C-kv: one thread per compare-exchange pair, grid-stride loop, out of place.
 
@@ -73,31 +91,6 @@ __device__ __forceinline__ int32_t cmp_value(int32_t v) { return v; }
 __device__ __forceinline__ float cmp_value(__half v) { return __half2float(v); }
 __device__ __forceinline__ float cmp_value(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Compare-exchange of keys[i] and keys[i + j] (and their ranks) in place.
-template <typename T, bool HAS_RANK>
-__device__ __forceinline__ void compare_exchange(T* keys, int32_t* ranks, int i, int j,
-                                                 bool dir_up) {
-  const T a = keys[i];
-  const T b = keys[i + j];
-  const auto ca = cmp_value(a);
-  const auto cb = cmp_value(b);
-  bool gt = ca > cb;
-  int32_t ra = 0, rb = 0;
-  if constexpr (HAS_RANK) {
-    ra = ranks[i];
-    rb = ranks[i + j];
-    gt = gt || (ca == cb && ra > rb);
-  }
-  if (gt == dir_up) {
-    keys[i] = b;
-    keys[i + j] = a;
-    if constexpr (HAS_RANK) {
-      ranks[i] = rb;
-      ranks[i + j] = ra;
-    }
-  }
-}
-
 // Position of the first element of compare-exchange pair p at distance j:
 // pairs are numbered group by group, j pairs to a group of 2j elements.
 template <typename I>
@@ -105,46 +98,8 @@ __device__ __forceinline__ I pair_index(I p, I j) {
   return ((p & ~(j - 1)) << 1) | (p & (j - 1));
 }
 
-// Kernel A on one block_n tile per CUDA block.
-template <typename T, bool HAS_RANK>
-__global__ void block_kernel(const T* __restrict__ x, const int32_t* __restrict__ r,
-                             T* __restrict__ ox, int32_t* __restrict__ orank,
-                             int64_t blocks_per_row, int block_n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* s_rank = reinterpret_cast<int32_t*>(smem);
-  T* s_key = reinterpret_cast<T*>(smem + (HAS_RANK ? sizeof(int32_t) * block_n : 0));
-
-  const int64_t tile = blockIdx.x;
-  const int64_t b = tile % blocks_per_row;  // block index within its row
-  const int64_t base = tile * block_n;
-
-  for (int t = threadIdx.x; t < block_n; t += blockDim.x) {
-    s_key[t] = x[base + t];
-    if constexpr (HAS_RANK) s_rank[t] = r[base + t];
-  }
-  __syncthreads();
-
-  const int half = block_n >> 1;
-  // kernel A: full network, block b ascending iff b is even
-  const bool asc = (b & 1) == 0;
-  for (int k = 2; k <= block_n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        const int i = pair_index(p, j);
-        compare_exchange<T, HAS_RANK>(s_key, s_rank, i, j, ((i & k) == 0) == asc);
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int t = threadIdx.x; t < block_n; t += blockDim.x) {
-    ox[base + t] = s_key[t];
-    if constexpr (HAS_RANK) orank[base + t] = s_rank[t];
-  }
-}
-
-// ---------------------------------------------------------------- kernel B ---
-// The merge kernel moves keys as raw bits (U) and converts only to compare.
+// ------------------------------------------------------------ kernels A, B ---
+// The tile kernel moves keys as raw bits (U) and converts only to compare.
 template <typename T> struct KeyBits;
 template <> struct KeyBits<float> {
   using U = uint32_t;
@@ -165,9 +120,9 @@ template <> struct KeyBits<__nv_bfloat16> {
   }
 };
 
-// Threads a merge block may have for E keys a thread (its __launch_bounds__);
-// _merge_geometry never asks for more.
-__host__ __device__ constexpr int merge_max_threads(int e) { return e <= 4 ? 128 : (e == 8 ? 256 : 512); }
+// Threads a tile block may have for E keys a thread (its __launch_bounds__);
+// _tile_geometry never asks for more.
+__host__ __device__ constexpr int tile_max_threads(int e) { return e <= 4 ? 128 : (e == 8 ? 256 : 512); }
 
 // The reference's gt for the pair (a at the lower index, b at the upper).
 template <typename T, bool HAS_RANK>
@@ -204,6 +159,54 @@ __device__ __forceinline__ int swizzle(int i) {
   constexpr int W = 4 / BYTES;                  // elements in one bank word
   constexpr int ROW_SHIFT = W == 2 ? 6 : 5;     // log2(elements in 128 bytes)
   return i ^ (((i >> ROW_SHIFT) * W) & (E - 1));
+}
+
+// v[e] = buf[E*tid + e]: E contiguous values of a linear buffer.  A thread
+// whose values fill NQ >= 1 whole 16-byte words reads them as uint4 in the
+// order q ^ s, s taken from the lane so that the 8 lanes of a quarter-warp
+// phase touch 8 different 16-byte bank groups, then undoes the XOR with
+// selects, one round per bit of s, so every register index stays static.
+template <typename V, int E>
+__device__ __forceinline__ void load_contiguous(const V* buf, int tid, V (&v)[E]) {
+  constexpr int BYTES = E * int(sizeof(V));
+  if constexpr (BYTES % 16 != 0) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = buf[E * tid + e];
+  } else {
+    constexpr int NQ = BYTES / 16;
+    constexpr int PER = 16 / int(sizeof(V));  // values in one uint4
+    static_assert(NQ <= 8, "at most 8 uint4 a thread");
+    constexpr int LOG_NQ = NQ == 8 ? 3 : (NQ == 4 ? 2 : (NQ == 2 ? 1 : 0));
+    const int s = (tid >> (3 - LOG_NQ)) & (NQ - 1);
+    const uint4* src = reinterpret_cast<const uint4*>(buf) + tid * NQ;
+    uint4 w[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) w[q] = src[q ^ s];
+#pragma unroll
+    for (int b = 1; b < NQ; b <<= 1) {
+      const bool flip = (s & b) != 0;
+#pragma unroll
+      for (int c = 0; c < NQ; ++c) {
+        if ((c & b) == 0) {
+          const uint4 lo = w[c], hi = w[c | b];
+          w[c] = flip ? hi : lo;
+          w[c | b] = flip ? lo : hi;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const uint32_t word[4] = {w[q].x, w[q].y, w[q].z, w[q].w};
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        if constexpr (sizeof(V) == 4) {
+          v[q * PER + i] = static_cast<V>(word[i]);
+        } else {
+          v[q * PER + i] = static_cast<V>(word[i / 2] >> (16 * (i % 2)));
+        }
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -253,64 +256,71 @@ __device__ __forceinline__ uint32_t key_word(const U (&k)[E], int w) {
   }
 }
 
-// Kernel B: substages j = block_n/2 .. 1 of stage k > block_n on every tile;
-// a tile whose flat start s has (s & k_mask) == 0 sorts up (k_mask is k, or 0
-// when k == n, where no tile start within a row has the bit).  A block walks
-// over chunks of `tiles_per_block` tiles; `1 << log_t` threads work on a tile.
-template <typename T, bool HAS_RANK, int E>
-__global__ void __launch_bounds__(merge_max_threads(E))
-    merge_kernel(const typename KeyBits<T>::U* __restrict__ x, const int32_t* __restrict__ r,
-                 typename KeyBits<T>::U* __restrict__ ox, int32_t* __restrict__ orank,
-                 int64_t tiles, int block_n, int log_t, int tiles_per_block, int slots,
-                 int64_t k_mask) {
+// Kernels A and B: stages k_first .. k_last (k_first doubling up to k_last) of
+// every block_n tile of rows of n keys, with parity mask f (see the top of the
+// file).  SORT is kernel A (stages 2 .. block_n); without it the launch is
+// kernel B (one stage k > block_n), where the direction is one per tile and the
+// tile starts strided, so its build carries none of A's paths and registers.
+// A block walks over chunks of `tiles_per_block` tiles, one chunk at a time in
+// its slot; `1 << log_t` threads work on a tile.
+template <typename T, bool HAS_RANK, int E, bool SORT>
+__device__ __forceinline__ void tile_network(
+    const typename KeyBits<T>::U* __restrict__ x, const int32_t* __restrict__ r,
+    typename KeyBits<T>::U* __restrict__ ox, int32_t* __restrict__ orank, int64_t tiles,
+    int64_t n, int block_n, int log_t, int tiles_per_block, int64_t k_first, int64_t k_last,
+    int64_t f) {
   using U = typename KeyBits<T>::U;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int chunk = tiles_per_block * block_n;  // elements of one ring slot
+  const int chunk = tiles_per_block * block_n;  // elements of the slot
   const int key_bytes = chunk * int(sizeof(U));
-  const int slot_bytes = key_bytes + (HAS_RANK ? chunk * 4 : 0);
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + slots * slot_bytes);
+  U* sk = reinterpret_cast<U*>(smem);
+  int32_t* sr = reinterpret_cast<int32_t*>(smem + key_bytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + key_bytes + (HAS_RANK ? chunk * 4 : 0));
   const int64_t chunks = (tiles + tiles_per_block - 1) / tiles_per_block;
   const int tid = threadIdx.x;
-  const int p = tid >> log_t;               // tile within the chunk
-  const int t = tid & ((1 << log_t) - 1);   // thread within the tile
+  const int t_n = 1 << log_t;
+  const int p = tid >> log_t;      // tile within the chunk
+  const int t = tid & (t_n - 1);   // thread within the tile
+  const int sbase = p * block_n + t;  // strided layout: element sbase + (e << log_t)
+  const int cbase = tid * E;          // contiguous layout: element cbase + e
+  auto jtop = [&](int64_t k) { return int((k < block_n ? k : int64_t{block_n}) / 2); };
+  // a tile moves through shared memory if its last stage has substages j >= T
+  // (T == 1: the two layouts are one)
+  const bool moves = log_t > 0 && jtop(k_last) >= t_n;
+  // kernel B's direction on the flat tile start s: up iff ((s & k & (f-1)) == 0)
+  // == ((s & f) == 0), the two bits taken only below n (above, a row has none).
+  // They are distinct (k & (f-1) < f), so up iff s has an even number of them.
+  const int64_t b_kbit = k_first & (f - 1);
+  const int64_t b_bits = (b_kbit < n ? b_kbit : 0) | (f < n ? f : 0);
 
   // elements in chunk c: fewer in a ragged last chunk
   auto chunk_len = [&](int64_t c) {
     const int64_t left = (tiles - c * tiles_per_block) * block_n;
     return left < chunk ? int(left) : chunk;
   };
-  // thread 0: start the bulk copy of chunk c into slot s, unless its size is
-  // not a multiple of 16 bytes (then the block loads it itself)
-  auto start_load = [&](int64_t c, int s) {
+  // thread 0: start the bulk copy of chunk c into the slot, unless its size
+  // is not a multiple of 16 bytes (then the block loads it itself)
+  auto start_load = [&](int64_t c) {
     const int len = chunk_len(c);
     if ((len * int(sizeof(U))) % 16) return;
-    unsigned char* dst = smem + s * slot_bytes;
-    mbar_expect_tx(&bar[s], len * (int(sizeof(U)) + (HAS_RANK ? 4 : 0)));
-    bulk_load(dst, x + c * chunk, len * sizeof(U), &bar[s]);
-    if constexpr (HAS_RANK) bulk_load(dst + key_bytes, r + c * chunk, len * 4, &bar[s]);
+    mbar_expect_tx(bar, len * (int(sizeof(U)) + (HAS_RANK ? 4 : 0)));
+    bulk_load(sk, x + c * chunk, len * sizeof(U), bar);
+    if constexpr (HAS_RANK) bulk_load(sr, r + c * chunk, len * 4, bar);
   };
 
   if (tid == 0) {
-    for (int s = 0; s < slots; ++s) mbar_init(&bar[s]);
+    mbar_init(bar);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0) {
-    for (int s = 0; s < slots; ++s) {
-      const int64_t c = blockIdx.x + int64_t{s} * gridDim.x;
-      if (c < chunks) start_load(c, s);
-    }
-  }
+  if (tid == 0 && blockIdx.x < chunks) start_load(blockIdx.x);
 
   int it = 0;
   for (int64_t c = blockIdx.x; c < chunks; c += gridDim.x, ++it) {
-    const int s = slots == 1 ? 0 : (it & 1);
-    U* sk = reinterpret_cast<U*>(smem + s * slot_bytes);
-    int32_t* sr = reinterpret_cast<int32_t*>(smem + s * slot_bytes + key_bytes);
     const int64_t first = c * chunk;
     const int len = chunk_len(c);
     if ((len * int(sizeof(U))) % 16 == 0) {
-      mbar_wait(&bar[s], (slots == 1 ? it : it >> 1) & 1);
+      mbar_wait(bar, it & 1);
     } else {
       for (int i = tid; i < len; i += blockDim.x) {
         sk[i] = x[first + i];
@@ -318,72 +328,156 @@ __global__ void __launch_bounds__(merge_max_threads(E))
       }
       __syncthreads();
     }
+    // every thread is done with the slot: hand it to the next bulk copy
+    auto release = [&]() {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+      const int64_t next = c + gridDim.x;
+      if (tid == 0 && next < chunks) start_load(next);
+    };
 
     U k[E];
     int32_t rk[E];
-    const int sbase = p * block_n + t;  // strided layout: element sbase + (e << log_t)
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      k[e] = sk[sbase + (e << log_t)];
-      rk[e] = HAS_RANK ? sr[sbase + (e << log_t)] : 0;
-    }
-    const bool up = ((first + int64_t{p} * block_n) & k_mask) == 0;
-
-    // j = T*m >= T: registers e and e + m
-#pragma unroll
-    for (int m = E / 2; m >= 1; m >>= 1) {
+    // the tile through shared memory: contiguous -> strided and back
+    auto to_strided = [&]() {
+      __syncthreads();
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        if ((e & m) == 0) ce_regs<T, HAS_RANK, E>(k, rk, e, e + m, up);
+        sk[swizzle<sizeof(U), E>(cbase + e)] = k[e];
+        if constexpr (HAS_RANK) sr[swizzle<4, E>(cbase + e)] = rk[e];
       }
-    }
-
-    // transpose through the slot into the contiguous layout: element cbase + e
-    __syncthreads();  // every thread has read its strided elements
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int i = sbase + (e << log_t);
-      sk[swizzle<sizeof(U), E>(i)] = k[e];
-      if constexpr (HAS_RANK) sr[swizzle<4, E>(i)] = rk[e];
-    }
-    __syncthreads();
-    const int cbase = tid * E;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      k[e] = sk[swizzle<sizeof(U), E>(cbase + e)];
-      if constexpr (HAS_RANK) rk[e] = sr[swizzle<4, E>(cbase + e)];
-    }
-    // the slot's reads and writes come before the next bulk copy into it
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    __syncthreads();
-    if (tid == 0 && c + int64_t{slots} * gridDim.x < chunks) start_load(c + int64_t{slots} * gridDim.x, s);
-
-    // E <= j < T: the partner is lane ^ d, d = j / E; both lanes compare
-    // (lower index's element, upper index's element)
-    for (int d = (1 << log_t) / (2 * E); d >= 1; d >>= 1) {
-      const bool lower = (t & d) == 0;
+      __syncthreads();
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        const U o = static_cast<U>(__shfl_xor_sync(0xffffffffu, uint32_t(k[e]), d));
-        const int32_t ro = HAS_RANK ? __shfl_xor_sync(0xffffffffu, rk[e], d) : 0;
-        const bool gt = lower ? greater<T, HAS_RANK>(k[e], o, rk[e], ro)
-                              : greater<T, HAS_RANK>(o, k[e], ro, rk[e]);
-        if (gt == up) {
-          k[e] = o;
-          rk[e] = ro;
+        const int i = sbase + (e << log_t);
+        k[e] = sk[swizzle<sizeof(U), E>(i)];
+        if constexpr (HAS_RANK) rk[e] = sr[swizzle<4, E>(i)];
+      }
+    };
+    auto to_contiguous = [&]() {
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int i = sbase + (e << log_t);
+        sk[swizzle<sizeof(U), E>(i)] = k[e];
+        if constexpr (HAS_RANK) sr[swizzle<4, E>(i)] = rk[e];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        k[e] = sk[swizzle<sizeof(U), E>(cbase + e)];
+        if constexpr (HAS_RANK) rk[e] = sr[swizzle<4, E>(cbase + e)];
+      }
+    };
+    // the pair at tile-local index loc goes up iff ((loc & kl) == 0) == up_k,
+    // kl 0 or the stage's bit inside the tile (>= 2j for every substage j)
+    // strided, j = T*m >= T, j <= top: registers e and e + m; loc & kl is
+    // (e & kle) << log_t
+    auto strided_substages = [&](int top, int kle, bool up_k) {
+#pragma unroll
+      for (int m = E / 2; m >= 1; m >>= 1) {
+        if (m * t_n <= top) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            if ((e & m) == 0) ce_regs<T, HAS_RANK, E>(k, rk, e, e + m, ((e & kle) == 0) == up_k);
+          }
         }
       }
-    }
-
-    // j < min(E, T): registers e and e + j (j >= T was done strided)
-#pragma unroll
-    for (int j = E / 2; j >= 1; j >>= 1) {
-      if (j < (1 << log_t)) {
+    };
+    // contiguous, E <= j < T, j <= top: the partner is lane ^ d, d = j / E;
+    // both lanes compare (lower index's element, upper index's element).
+    // kl >= 2E or 0 here, so up is one per thread.
+    auto shuffle_substages = [&](int top, bool up) {
+      for (int d = (top < t_n / 2 ? top : t_n / 2) / E; d >= 1; d >>= 1) {
+        const bool lower = (t & d) == 0;
 #pragma unroll
         for (int e = 0; e < E; ++e) {
-          if ((e & j) == 0) ce_regs<T, HAS_RANK, E>(k, rk, e, e + j, up);
+          const U o = static_cast<U>(__shfl_xor_sync(0xffffffffu, uint32_t(k[e]), d));
+          const int32_t ro = HAS_RANK ? __shfl_xor_sync(0xffffffffu, rk[e], d) : 0;
+          const bool gt = lower ? greater<T, HAS_RANK>(k[e], o, rk[e], ro)
+                                : greater<T, HAS_RANK>(o, k[e], ro, rk[e]);
+          if (gt == up) {
+            k[e] = o;
+            rk[e] = ro;
+          }
         }
       }
+    };
+    // contiguous, j < min(E, T), j <= top: registers e and e + j; with
+    // 0 < kl < E (stages k < E of kernel A) the direction is bit k of e, else
+    // one per thread (up_t)
+    auto register_substages = [&](int top, int kl, bool up_k, bool up_t) {
+      if (kl != 0 && kl < E) {
+#pragma unroll
+        for (int j = E / 2; j >= 1; j >>= 1) {
+          if (j < t_n && j <= top) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              if ((e & j) == 0) ce_regs<T, HAS_RANK, E>(k, rk, e, e + j, ((e & kl) == 0) == up_k);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = E / 2; j >= 1; j >>= 1) {
+          if (j < t_n && j <= top) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              if ((e & j) == 0) ce_regs<T, HAS_RANK, E>(k, rk, e, e + j, up_t);
+            }
+          }
+        }
+      }
+    };
+
+    if constexpr (SORT) {
+      // kernel A: read the slot contiguous, then stages 2 .. block_n
+      load_contiguous<U, E>(sk, tid, k);
+      if constexpr (HAS_RANK) {
+        load_contiguous<int32_t, E>(sr, tid, rk);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) rk[e] = 0;
+      }
+      if (!moves) release();
+      // the tile's start within its row, and its parity under f
+      const int64_t ts = (first + int64_t{p} * block_n) & (n - 1);
+      const bool asc = (ts & f) == 0;
+      // every stage starts and ends contiguous
+      for (int64_t kk = k_first; kk <= k_last; kk <<= 1) {
+        const int64_t kmask = kk & (f - 1);
+        const bool up_k = ((ts & kmask) == 0) == asc;
+        const int kl = int(kmask & (block_n - 1));
+        const bool up_t = (((t * E) & kl) == 0) == up_k;
+        const int top = jtop(kk);
+        if (top >= t_n) {
+          if (log_t > 0) to_strided();
+          strided_substages(top, kl >> log_t, up_k);
+          if (log_t > 0) {
+            to_contiguous();
+            if (kk == k_last) release();
+          }
+        }
+        shuffle_substages(top, up_t);
+        register_substages(top, kl, up_k, up_t);
+      }
+    } else {
+      // kernel B: read the slot strided, then the one stage, up one per tile
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        k[e] = sk[sbase + (e << log_t)];
+        rk[e] = HAS_RANK ? sr[sbase + (e << log_t)] : 0;
+      }
+      if (log_t == 0) release();  // T == 1: no transpose
+      const bool up = (__popcll((first + int64_t{p} * block_n) & b_bits) & 1) == 0;
+      const int top = block_n / 2;
+      strided_substages(top, 0, up);
+      if (log_t > 0) {
+        to_contiguous();
+        release();
+      }
+      shuffle_substages(top, up);
+      register_substages(top, 0, up, up);
     }
 
     if (p * block_n < len) {  // a ragged last chunk has fewer tiles
@@ -416,17 +510,44 @@ __global__ void __launch_bounds__(merge_max_threads(E))
   }
 }
 
-// Kernel C: one cross-block substage at distance j of stage k, over all rows.
+// The tile network's two entry points differ only in their launch bounds: with
+// the plain bound ptxas keeps B at the registers that fill the SM with blocks
+// (32 keys-only at E = 8) but caps A's E = 16 build with ranks at 64 and spills;
+// a minimum of one block a SM lets A take what it needs (up to 128) unspilled.
+template <typename T, bool HAS_RANK, int E>
+__global__ void __launch_bounds__(tile_max_threads(E), 1)
+    sort_kernel(const typename KeyBits<T>::U* __restrict__ x, const int32_t* __restrict__ r,
+                typename KeyBits<T>::U* __restrict__ ox, int32_t* __restrict__ orank,
+                int64_t tiles, int64_t n, int block_n, int log_t, int tiles_per_block,
+                int64_t k_first, int64_t k_last, int64_t f) {
+  tile_network<T, HAS_RANK, E, true>(x, r, ox, orank, tiles, n, block_n, log_t, tiles_per_block,
+                                     k_first, k_last, f);
+}
+
+template <typename T, bool HAS_RANK, int E>
+__global__ void __launch_bounds__(tile_max_threads(E))
+    merge_kernel(const typename KeyBits<T>::U* __restrict__ x, const int32_t* __restrict__ r,
+                 typename KeyBits<T>::U* __restrict__ ox, int32_t* __restrict__ orank,
+                 int64_t tiles, int64_t n, int block_n, int log_t, int tiles_per_block,
+                 int64_t k_first, int64_t k_last, int64_t f) {
+  tile_network<T, HAS_RANK, E, false>(x, r, ox, orank, tiles, n, block_n, log_t,
+                                      tiles_per_block, k_first, k_last, f);
+}
+
+// Kernel C: one cross-tile substage at distance j of stage k, over all rows,
+// with parity mask f.
 template <typename T, bool HAS_RANK>
 __global__ void global_stage_kernel(const T* __restrict__ x, const int32_t* __restrict__ r,
                                     T* __restrict__ ox, int32_t* __restrict__ orank,
-                                    int64_t pairs, int log_half_n, int64_t j, int64_t k) {
+                                    int64_t pairs, int log_half_n, int64_t j, int64_t k,
+                                    int64_t f) {
   const int64_t half_n = int64_t{1} << log_half_n;
   const int64_t stride = int64_t{gridDim.x} * blockDim.x;
+  const int64_t kmask = k & (f - 1);
   for (int64_t p = int64_t{blockIdx.x} * blockDim.x + threadIdx.x; p < pairs; p += stride) {
     const int64_t row = p >> log_half_n;
     const int64_t i = pair_index(p & (half_n - 1), j);  // index within the row
-    const bool dir_up = (i & k) == 0;                  // ((m*2j)//k) % 2 == 0
+    const bool dir_up = ((i & kmask) == 0) == ((i & f) == 0);
     const int64_t ia = (row << (log_half_n + 1)) + i;
     const int64_t ib = ia + j;
     const T a = x[ia];
@@ -456,30 +577,9 @@ int log2_exact(int64_t v) {
   return l;
 }
 
-template <typename T, bool HAS_RANK>
-cudaError_t launch_block(const void* x, const void* r, void* ox, void* orank, int64_t rows,
-                         int64_t n, int block_n, cudaStream_t stream) {
-  const int64_t blocks_per_row = n / block_n;
-  const int64_t tiles = rows * blocks_per_row;
-  if (tiles > INT32_MAX) return cudaErrorInvalidConfiguration;
-  if (tiles == 0) return cudaSuccess;
-  const int threads = block_n / 2 > 1024 ? 1024 : (block_n / 2 < 1 ? 1 : block_n / 2);
-  const size_t smem = size_t(block_n) * (sizeof(T) + (HAS_RANK ? sizeof(int32_t) : 0));
-  auto kernel = &block_kernel<T, HAS_RANK>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<unsigned(tiles), threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(r), static_cast<T*>(ox),
-      static_cast<int32_t*>(orank), blocks_per_row, block_n);
-  return cudaGetLastError();
-}
-
 constexpr int kMaxBlockN = 16384;        // bitonic_sort.py:MAX_BLOCK_N
 constexpr int kMaxSharedBytes = 232448;  // dynamic shared memory one sm_90 block may use
-constexpr int kBarrierBytes = 16;        // two mbarriers after the ring
+constexpr int kBarrierBytes = 8;         // one mbarrier after the slot
 
 bool is_pow2(int64_t v) { return v >= 1 && (v & (v - 1)) == 0; }
 
@@ -519,14 +619,14 @@ cudaError_t resident_blocks(const void* kernel, int threads, int smem, int64_t* 
 }
 
 // One persistent block per free slot of the card, at most one per chunk.
-template <typename T, bool HAS_RANK, int E>
-cudaError_t launch_merge_e(const void* x, const void* r, void* ox, void* orank, int64_t tiles,
-                           int block_n, int log_t, int tiles_per_block, int slots, int smem,
-                           int64_t k_mask, cudaStream_t stream) {
+template <typename T, bool HAS_RANK, int E, bool SORT>
+cudaError_t launch_tile_e(const void* x, const void* r, void* ox, void* orank, int64_t tiles,
+                          int64_t n, int block_n, int log_t, int tiles_per_block, int smem,
+                          int64_t k_first, int64_t k_last, int64_t f, cudaStream_t stream) {
   using U = typename KeyBits<T>::U;
-  auto kernel = &merge_kernel<T, HAS_RANK, E>;
+  auto kernel = SORT ? &sort_kernel<T, HAS_RANK, E> : &merge_kernel<T, HAS_RANK, E>;
   const int threads = tiles_per_block << log_t;
-  if (threads > merge_max_threads(E)) return cudaErrorInvalidValue;
+  if (threads > tile_max_threads(E)) return cudaErrorInvalidValue;
   int64_t resident = 0;
   const cudaError_t e =
       resident_blocks(reinterpret_cast<const void*>(kernel), threads, smem, &resident);
@@ -535,28 +635,35 @@ cudaError_t launch_merge_e(const void* x, const void* r, void* ox, void* orank, 
   const int64_t blocks = chunks < resident ? chunks : resident;
   kernel<<<unsigned(blocks), threads, smem, stream>>>(
       static_cast<const U*>(x), static_cast<const int32_t*>(r), static_cast<U*>(ox),
-      static_cast<int32_t*>(orank), tiles, block_n, log_t, tiles_per_block, slots, k_mask);
+      static_cast<int32_t*>(orank), tiles, n, block_n, log_t, tiles_per_block, k_first, k_last,
+      f);
   return cudaGetLastError();
 }
 
-// Validates the geometry from _merge_geometry before any launch:
-// cudaErrorInvalidValue on a mismatch, cudaErrorMisalignedAddress on a pointer
-// the bulk copies and vector stores cannot take.
+// Validates the stages and the geometry from _tile_geometry before any
+// launch: cudaErrorInvalidValue on a mismatch, cudaErrorMisalignedAddress on
+// a pointer the bulk copies and vector loads and stores cannot take.  The
+// stages are kernel A's (2 .. block_n, f a power of two >= block_n) or kernel
+// B's (one stage k > block_n, f 0 or a power of two >= k).
 template <typename T, bool HAS_RANK>
-cudaError_t launch_merge(const void* x, const void* r, void* ox, void* orank, int64_t rows,
-                         int64_t n, int block_n, int64_t k, int threads_per_tile, int elems,
-                         int tiles_per_block, int slots, int smem, cudaStream_t stream) {
+cudaError_t launch_tile(const void* x, const void* r, void* ox, void* orank, int64_t rows,
+                        int64_t n, int block_n, int64_t k_first, int64_t k_last, int64_t f,
+                        int threads_per_tile, int elems, int tiles_per_block, int smem,
+                        cudaStream_t stream) {
   using U = typename KeyBits<T>::U;
   const int64_t chunk = int64_t{tiles_per_block} * block_n;
   const int64_t elem_bytes = sizeof(U) + (HAS_RANK ? 4 : 0);
+  const bool sort_stages = k_first == 2 && k_last == block_n && f != 0;
+  const bool merge_stage = k_first == k_last && is_pow2(k_first) && k_first > block_n;
   const bool ok = is_pow2(block_n) && block_n <= kMaxBlockN && is_pow2(threads_per_tile) &&
                   is_pow2(elems) && elems <= 32 && int64_t{threads_per_tile} * elems == block_n &&
                   threads_per_tile <= 32 * elems && is_pow2(tiles_per_block) &&
                   int64_t{threads_per_tile} * tiles_per_block <= 1024 &&
-                  (chunk * int64_t{sizeof(U)}) % 16 == 0 && (slots == 1 || slots == 2) &&
-                  int64_t{smem} == slots * chunk * elem_bytes + kBarrierBytes &&
-                  smem <= kMaxSharedBytes && is_pow2(n) && n % block_n == 0 && is_pow2(k) &&
-                  k > block_n && k <= n;
+                  (chunk * int64_t{sizeof(U)}) % 16 == 0 &&
+                  int64_t{smem} == chunk * elem_bytes + kBarrierBytes &&
+                  smem <= kMaxSharedBytes && is_pow2(n) && n % block_n == 0 &&
+                  (sort_stages || merge_stage) && k_last <= n &&
+                  (f == 0 || (is_pow2(f) && f >= k_last && f <= n));
   if (!ok) return cudaErrorInvalidValue;
   for (const void* ptr : {x, r, static_cast<const void*>(ox), static_cast<const void*>(orank)}) {
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorMisalignedAddress;
@@ -564,21 +671,25 @@ cudaError_t launch_merge(const void* x, const void* r, void* ox, void* orank, in
   const int64_t tiles = rows * (n / block_n);
   if (tiles == 0) return cudaSuccess;
   const int log_t = log2_exact(threads_per_tile);
-  const int64_t k_mask = k < n ? k : 0;
   switch (elems) {
-#define MERGE_CASE(E)                                                                      \
+#define TILE_CASE(E)                                                                       \
   case E:                                                                                  \
-    return launch_merge_e<T, HAS_RANK, E>(x, r, ox, orank, tiles, block_n, log_t,          \
-                                          tiles_per_block, slots, smem, k_mask, stream);
-    MERGE_CASE(1) MERGE_CASE(2) MERGE_CASE(4) MERGE_CASE(8) MERGE_CASE(16) MERGE_CASE(32)
-#undef MERGE_CASE
+    return sort_stages                                                                     \
+               ? launch_tile_e<T, HAS_RANK, E, true>(x, r, ox, orank, tiles, n, block_n,   \
+                                                     log_t, tiles_per_block, smem, k_first, \
+                                                     k_last, f, stream)                    \
+               : launch_tile_e<T, HAS_RANK, E, false>(x, r, ox, orank, tiles, n, block_n,  \
+                                                      log_t, tiles_per_block, smem,        \
+                                                      k_first, k_last, f, stream);
+    TILE_CASE(1) TILE_CASE(2) TILE_CASE(4) TILE_CASE(8) TILE_CASE(16) TILE_CASE(32)
+#undef TILE_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T, bool HAS_RANK>
 cudaError_t launch_global(const void* x, const void* r, void* ox, void* orank, int64_t rows,
-                          int64_t n, int64_t j, int64_t k, cudaStream_t stream) {
+                          int64_t n, int64_t j, int64_t k, int64_t f, cudaStream_t stream) {
   const int64_t pairs = rows * (n / 2);
   if (pairs == 0) return cudaSuccess;
   const int threads = 256;
@@ -586,7 +697,7 @@ cudaError_t launch_global(const void* x, const void* r, void* ox, void* orank, i
   if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
   global_stage_kernel<T, HAS_RANK><<<unsigned(blocks), threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const int32_t*>(r), static_cast<T*>(ox),
-      static_cast<int32_t*>(orank), pairs, log2_exact(n / 2), j, k);
+      static_cast<int32_t*>(orank), pairs, log2_exact(n / 2), j, k, f);
   return cudaGetLastError();
 }
 
@@ -604,55 +715,47 @@ enum : int { kFloat32 = 0, kInt32 = 1, kFloat16 = 2, kBFloat16 = 3 };
   }
 
 template <bool HAS_RANK>
-cudaError_t dispatch_block(int dtype, const void* x, const void* r, void* ox, void* orank,
-                           int64_t rows, int64_t n, int block_n, cudaStream_t s) {
-  DISPATCH_DTYPE(launch_block, HAS_RANK, x, r, ox, orank, rows, n, block_n, s)
-}
-
-template <bool HAS_RANK>
-cudaError_t dispatch_merge(int dtype, const void* x, const void* r, void* ox, void* orank,
-                           int64_t rows, int64_t n, int block_n, int64_t k, int threads_per_tile,
-                           int elems, int tiles_per_block, int slots, int smem, cudaStream_t s) {
-  DISPATCH_DTYPE(launch_merge, HAS_RANK, x, r, ox, orank, rows, n, block_n, k, threads_per_tile,
-                 elems, tiles_per_block, slots, smem, s)
+cudaError_t dispatch_tile(int dtype, const void* x, const void* r, void* ox, void* orank,
+                          int64_t rows, int64_t n, int block_n, int64_t k_first, int64_t k_last,
+                          int64_t f, int threads_per_tile, int elems, int tiles_per_block,
+                          int smem, cudaStream_t s) {
+  DISPATCH_DTYPE(launch_tile, HAS_RANK, x, r, ox, orank, rows, n, block_n, k_first, k_last, f,
+                 threads_per_tile, elems, tiles_per_block, smem, s)
 }
 
 template <bool HAS_RANK>
 cudaError_t dispatch_global(int dtype, const void* x, const void* r, void* ox, void* orank,
-                            int64_t rows, int64_t n, int64_t j, int64_t k, cudaStream_t s) {
-  DISPATCH_DTYPE(launch_global, HAS_RANK, x, r, ox, orank, rows, n, j, k, s)
+                            int64_t rows, int64_t n, int64_t j, int64_t k, int64_t f,
+                            cudaStream_t s) {
+  DISPATCH_DTYPE(launch_global, HAS_RANK, x, r, ox, orank, rows, n, j, k, f, s)
 }
 
 }  // namespace
 
 // Entry points: `r`/`orank` are null for the keys-only kernels.  Each launches
 // on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int bitonic_block_sort(int dtype, const void* x, const void* r, void* ox,
-                                  void* orank, long long rows, long long n, int block_n,
-                                  void* stream) {
+
+// Kernels A and B with the geometry _tile_geometry computed for (block_n,
+// dtype, ranks): stages k_first .. k_last of every tile, parity mask f.
+extern "C" int bitonic_tile_network(int dtype, const void* x, const void* r, void* ox,
+                                    void* orank, long long rows, long long n, int block_n,
+                                    long long k_first, long long k_last, long long f,
+                                    int threads_per_tile, int elems, int tiles_per_block,
+                                    int smem, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return r ? dispatch_block<true>(dtype, x, r, ox, orank, rows, n, block_n, s)
-           : dispatch_block<false>(dtype, x, r, ox, orank, rows, n, block_n, s);
+  return r ? dispatch_tile<true>(dtype, x, r, ox, orank, rows, n, block_n, k_first, k_last, f,
+                                 threads_per_tile, elems, tiles_per_block, smem, s)
+           : dispatch_tile<false>(dtype, x, r, ox, orank, rows, n, block_n, k_first, k_last, f,
+                                  threads_per_tile, elems, tiles_per_block, smem, s);
 }
 
-// Kernel B with the geometry _merge_geometry computed for (block_n, dtype, ranks).
-extern "C" int bitonic_block_merge(int dtype, const void* x, const void* r, void* ox,
-                                   void* orank, long long rows, long long n, int block_n,
-                                   long long k, int threads_per_tile, int elems,
-                                   int tiles_per_block, int slots, int smem, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return r ? dispatch_merge<true>(dtype, x, r, ox, orank, rows, n, block_n, k, threads_per_tile,
-                                  elems, tiles_per_block, slots, smem, s)
-           : dispatch_merge<false>(dtype, x, r, ox, orank, rows, n, block_n, k, threads_per_tile,
-                                   elems, tiles_per_block, slots, smem, s);
-}
-
+// Kernel C: substage j of stage k, parity mask f.
 extern "C" int bitonic_global_stage(int dtype, const void* x, const void* r, void* ox,
                                     void* orank, long long rows, long long n, long long j,
-                                    long long k, void* stream) {
+                                    long long k, long long f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return r ? dispatch_global<true>(dtype, x, r, ox, orank, rows, n, j, k, s)
-           : dispatch_global<false>(dtype, x, r, ox, orank, rows, n, j, k, s);
+  return r ? dispatch_global<true>(dtype, x, r, ox, orank, rows, n, j, k, f, s)
+           : dispatch_global<false>(dtype, x, r, ox, orank, rows, n, j, k, f, s);
 }
 
 extern "C" const char* bitonic_error_string(int err) {

@@ -12,15 +12,21 @@ sorts the last axis of any length >= 1: it pads to the next power of two with
 Leading dims are rows of the kernel grid (the reference ``vmap``s its 1-D
 kernels over them instead).  ``kernel_argsort`` runs the same network on
 (key, rank) pairs — ranks never tie, so the permutation it returns (int32,
-as the reference's) is the stable one.  ``kernel_sort_kv`` gathers a dict of
-payloads by it.
+as the reference's) is the stable one.  ``kernel_sort_kv`` gathers any nest
+of dicts, lists and tuples of payloads by it, as the reference's pytree.
 
-``block_n`` is the shared-memory tile width: a power of two, clamped to the
-padded length and at most ``MAX_BLOCK_N``.  NaN keys give unspecified output.
+Keys are float32, int32, float16 or bfloat16, which the kernels take, or
+int8, uint8, int16, uint16 or uint32, which go through the int32 network by
+an order-preserving map and come back in their own dtype, bit for bit.
+
+``block_n`` is the tile width: a power of two, clamped to the padded length
+(tiles above ``MAX_BLOCK_N`` are composed from launches at the cap).  NaN
+keys give unspecified output.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.core.bitonic import next_pow2, sentinel_for
 
@@ -53,19 +59,56 @@ def _resolve_shape(n: int, block_n: int):
     return np2, min(block_n, np2)
 
 
+_INT32_SIGN = -(1 << 31)
+# widened exactly: int32 keeps their order
+_WIDENED = (torch.int8, torch.uint8, torch.int16, torch.uint16)
+
+
+def _to_kernel_keys(x: torch.Tensor) -> torch.Tensor:
+    """Keys in a dtype the kernels take, in the same order: narrow integers
+    widened to int32, uint32 with its sign bit flipped and viewed as int32."""
+    if x.dtype in _WIDENED:
+        return x.to(torch.int32)
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32) ^ _INT32_SIGN
+    if x.dtype == torch.bool:
+        raise TypeError("bool keys are not sorted: the reference's kernels reject them too")
+    if x.dtype in (torch.int64, torch.uint64, torch.float64):
+        raise TypeError(
+            f"{x.dtype} keys are not sorted: the reference runs with JAX's default of 32-bit "
+            "types (x64 off), so it has no 64-bit keys"
+        )
+    return x
+
+
+def _from_kernel_keys(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The inverse of ``_to_kernel_keys``."""
+    if dtype in _WIDENED:
+        return y.to(dtype)
+    if dtype == torch.uint32:
+        return (y ^ _INT32_SIGN).view(torch.uint32)
+    return y
+
+
 def _padded_rows(x: torch.Tensor, block_n: int):
-    """(effective block_n, keys as contiguous (rows, padded length))."""
+    """(effective block_n, kernel keys as contiguous (rows, padded length)),
+    padded with the mapped largest value of ``x``'s own dtype.  The rows may
+    be ``x``'s own storage; a CUDA view of it that does not start on 16 bytes
+    is copied, since kernel A bulk-copies from 16-byte boundaries."""
     if x.dim() < 1:
         raise ValueError("expected at least one axis to sort")
     n = x.shape[-1]
     if n < 1:
         raise ValueError("need at least one element to sort")
     np2, block_n = _resolve_shape(n, block_n)
-    rows = x.reshape(-1, n)
+    rows = _to_kernel_keys(x.reshape(-1, n))
     if np2 != n:
-        pad = rows.new_full((rows.shape[0], np2 - n), sentinel_for(x.dtype, largest=True).item())
-        rows = torch.cat([rows, pad], dim=-1)
-    return block_n, rows.contiguous()
+        fill = _to_kernel_keys(sentinel_for(x.dtype, largest=True)).item()
+        rows = torch.cat([rows, rows.new_full((rows.shape[0], np2 - n), fill)], dim=-1)
+    rows = rows.contiguous()
+    if rows.is_cuda and rows.data_ptr() % 16:
+        rows = rows.clone()
+    return block_n, rows
 
 
 def _sort_rows(x: torch.Tensor, block_n: int) -> torch.Tensor:
@@ -111,7 +154,7 @@ def kernel_sort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.Ten
     """
     block_n, rows = _padded_rows(x, block_n)
     out = _sort_rows(rows, block_n)
-    return out[:, : x.shape[-1]].reshape(x.shape)
+    return _from_kernel_keys(out[:, : x.shape[-1]].reshape(x.shape), x.dtype)
 
 
 def kernel_argsort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.Tensor:
@@ -128,10 +171,11 @@ def kernel_argsort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.
     return perm[:, : x.shape[-1]].reshape(x.shape)
 
 
-def kernel_sort_kv(keys: torch.Tensor, values: dict, *, block_n: int = DEFAULT_BLOCK_N):
-    """Stable key-value sort: 1-D keys, a dict of (n, ...) payloads.
+def kernel_sort_kv(keys: torch.Tensor, values, *, block_n: int = DEFAULT_BLOCK_N):
+    """Stable key-value sort: 1-D keys, any nest of dicts, lists and tuples
+    of (n, ...) payloads.
 
-    Returns ``(sorted_keys, permuted_values)``.
+    Returns ``(sorted_keys, permuted_values)``, the values in their structure.
 
     >>> k, v = kernel_sort_kv(torch.tensor([2.0, 1.0, 2.0]), {"i": torch.tensor([0, 1, 2])})
     >>> k.tolist(), v["i"].tolist()
@@ -140,4 +184,4 @@ def kernel_sort_kv(keys: torch.Tensor, values: dict, *, block_n: int = DEFAULT_B
     if keys.dim() != 1:
         raise ValueError("kernel_sort_kv expects 1-D keys")
     perm = kernel_argsort(keys, block_n=block_n).long()
-    return keys[perm], {name: v[perm] for name, v in values.items()}
+    return keys[perm], tree_map(lambda v: v[perm], values)

@@ -52,5 +52,6 @@ def global_stage_ref(x: torch.Tensor, j: int, k: int) -> torch.Tensor:
 
 
 def full_sort_ref(x: torch.Tensor) -> torch.Tensor:
-    """End-to-end oracle for the composed op."""
-    return torch.sort(x, dim=-1).values
+    """End-to-end oracle for the composed op: the library sort, stable as
+    the reference's ``jnp.sort``."""
+    return torch.sort(x, dim=-1, stable=True).values

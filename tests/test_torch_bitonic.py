@@ -105,6 +105,13 @@ def test_ref_oracles_match_reference(dtype):
     assert_bits_equal(oracles.full_sort_ref(cpu(x)), ref_oracles.full_sort_ref(jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_sort_ref_keeps_signed_zeros_like_the_reference(dtype):
+    """Both library sorts are stable: -0.0 and +0.0 keep their input order."""
+    x = np.tile(np.array([0.0, -0.0, 1.0, -0.0, 0.0, -1.0], np.float32), (2, 4)).astype(DTYPES[dtype])
+    assert_bits_equal(oracles.full_sort_ref(cpu(x)), ref_oracles.full_sort_ref(jnp.asarray(x)))
+
+
 # ------------------------------------ plain kernel versions vs Pallas kernels ---
 @pytest.mark.parametrize("block_n,n", [(64, 64), (64, 512), (128, 1024)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -178,8 +185,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(64)
     with pytest.raises(ValueError):
         kernels.block_sort(x, 48)  # block_n not a power of two
-    with pytest.raises(ValueError):
-        kernels.block_sort(torch.zeros(kernels.MAX_BLOCK_N * 2), kernels.MAX_BLOCK_N * 2)
+    wide = make_keys("float32", kernels.MAX_BLOCK_N * 2, seed=9)  # a tile above the cap is taken
+    assert_bits_equal(kernels.block_sort(cpu(wide), kernels.MAX_BLOCK_N * 2),
+                      ref_kernels.block_sort(jnp.asarray(wide), kernels.MAX_BLOCK_N * 2, interpret=True))
     with pytest.raises(ValueError):
         kernels.block_sort(torch.zeros(48), 16)  # row length not a power of two
     with pytest.raises(ValueError):
@@ -190,6 +198,44 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         kernels.global_stage(x, 16, 16)  # k < 2j
     with pytest.raises(ValueError):
         kernels.block_sort_kv(x, torch.arange(64), 16)  # int64 ranks
+
+
+@pytest.mark.parametrize("has_rank", [False, True])
+def test_tiles_above_the_cap_match_pallas(has_rank):
+    """block_sort(_kv) and block_merge(_kv) at block_n = 2 * MAX_BLOCK_N on a
+    2^16 row, against the Pallas kernels, which take the tile whole."""
+    bn, n = 2 * kernels.MAX_BLOCK_N, 4 * kernels.MAX_BLOCK_N
+    x = make_keys("float32", n, seed=10, duplicates=has_rank)
+    if not has_rank:
+        y = ref_kernels.block_sort(jnp.asarray(x), bn, interpret=True)
+        assert_bits_equal(kernels.block_sort(cpu(x), bn), y)
+        assert_bits_equal(kernels.block_merge(cpu(np.asarray(y)), bn, n),
+                          ref_kernels.block_merge(y, bn, n, interpret=True))
+        return
+    r = np.arange(n, dtype=np.int32)
+    y, ry = ref_kernels.block_sort_kv(jnp.asarray(x), jnp.asarray(r), bn, interpret=True)
+    got, got_r = kernels.block_sort_kv(cpu(x), cpu(r), bn)
+    assert_bits_equal(got, y)
+    assert_bits_equal(got_r, ry)
+    want, want_r = ref_kernels.block_merge_kv(y, ry, bn, n, interpret=True)
+    got, got_r = kernels.block_merge_kv(got, got_r, bn, n)
+    assert_bits_equal(got, want)
+    assert_bits_equal(got_r, want_r)
+
+
+def test_tile_launches_above_the_cap():
+    """What the card runs for a tile above the cap: A at the cap with parity
+    mask W, then per stage C down to the cap and B at the cap."""
+    assert kernels._tile_launches(64, None, 16) == (
+        ("sort", 16, 2, 16, 64),
+        ("global", 16, 32, 64), ("merge", 16, 32, 32, 64),
+        ("global", 32, 64, 64), ("global", 16, 64, 64), ("merge", 16, 64, 64, 64),
+    )
+    assert kernels._tile_launches(64, 256, 16) == (
+        ("global", 32, 256, 0), ("global", 16, 256, 0), ("merge", 16, 256, 256, 0),
+    )
+    assert kernels._tile_launches(1024, None) == (("sort", 1024, 2, 1024, 1024),)
+    assert kernels._tile_launches(1024, 4096) == (("merge", 1024, 4096, 4096, 0),)
 
 
 def test_plain_versions_leave_launch_counts_alone():

@@ -115,6 +115,79 @@ def test_merge_kernels_match_plain_at_every_tile_width(cuda, dtype, block_n):
     assert kernels.launch_counts()["block_merge"] == kernels.launch_counts()["block_merge_kv"] == launches
 
 
+@pytest.mark.parametrize("block_n", [1 << i for i in range(kernels.MAX_BLOCK_N.bit_length())])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_sort_kernels_match_plain_at_every_tile_width(cuda, dtype, block_n):
+    # rows of several tiles (odd tiles descend) and rows of one tile (all up);
+    # (3, block_n) leaves a ragged last chunk for the narrow tiles
+    launches = 0
+    for rows, n in ((3, 4 * kernels.MAX_BLOCK_N), (3, block_n)):
+        x = _tie_keys(dtype, (rows, n), seed=block_n + 1)
+        r = torch.randperm(n, generator=torch.Generator().manual_seed(block_n), dtype=torch.int32)
+        r = r.expand(rows, n).contiguous()
+        _assert_same_bits(kernels.block_sort(x.to(cuda), block_n), kernels.block_sort(x, block_n))
+        got, got_r = kernels.block_sort_kv(x.to(cuda), r.to(cuda), block_n)
+        want, want_r = kernels.block_sort_kv(x, r, block_n)
+        _assert_same_bits(got, want)
+        assert torch.equal(got_r.cpu(), want_r), f"rows={rows} n={n}"
+        launches += 1
+    assert kernels.launch_counts()["block_sort"] == kernels.launch_counts()["block_sort_kv"] == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16], ids=str)
+def test_signed_zeros_through_a_descending_sort_tile(cuda, dtype):
+    x = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0, -0.0, 0.0, 2.0] * 128, dtype=dtype)
+    r = torch.arange(x.numel(), dtype=torch.int32)
+    for block_n in (8, 64, 512):  # odd tiles descend; 512: every layout of the kernel
+        _assert_same_bits(kernels.block_sort(x.to(cuda), block_n), kernels.block_sort(x, block_n))
+        got, got_r = kernels.block_sort_kv(x.to(cuda), r.to(cuda), block_n)
+        want, want_r = kernels.block_sort_kv(x, r, block_n)
+        _assert_same_bits(got, want)
+        assert torch.equal(got_r.cpu(), want_r)
+
+
+def test_misaligned_sort_input_raises(cuda):
+    n = 4096
+    shifted = torch.zeros(n + 1, device=cuda)[1:]  # contiguous, 4 bytes past 16
+    ranks = torch.arange(n, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.block_sort(shifted, 1024)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.block_sort_kv(shifted, ranks, 1024)
+    assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_sort_paths_take_views_that_start_off_16_bytes(cuda, dtype):
+    # A [1:] view of length 2^k needs no padding, so the rows it reaches the
+    # ops with are the caller's storage; kernel A refuses it, so the ops copy it.
+    n = 4096
+    plain = _keys(dtype, (n + 1,), seed=9, duplicates=True)[1:]
+    view = _keys(dtype, (n + 1,), seed=9, duplicates=True).to(cuda)[1:]
+    assert view.data_ptr() % 16
+    _assert_same_bits(ops.kernel_sort(view, block_n=1024), ops.kernel_sort(plain, block_n=1024))
+    want = ops.kernel_argsort(plain, block_n=1024)
+    assert torch.equal(ops.kernel_argsort(view, block_n=1024).cpu(), want)
+    assert torch.equal(engine.argsort(view, impl="kernel", block_n=1024).cpu(), want)
+    counts = kernels.launch_counts()
+    assert counts["block_sort"] == 1 and counts["block_sort_kv"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16, torch.uint16, torch.uint32], ids=str)
+def test_narrow_integer_keys_on_the_card(cuda, dtype):
+    info = torch.iinfo(dtype)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 1 << 16, (4, 3000), generator=g).to(torch.int64)
+    x = (x * (info.max - info.min) // (1 << 16) + info.min)
+    x[:, ::5], x[:, 7] = info.max, info.min
+    x = torch.tensor(x.tolist(), dtype=dtype)
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]  # compares on the CPU
+    got = ops.kernel_sort(x.to(cuda), block_n=256)
+    assert got.dtype == dtype
+    assert torch.equal(got.cpu().view(signed), ops.kernel_sort(x, block_n=256).view(signed))
+    assert torch.equal(ops.kernel_argsort(x.to(cuda), block_n=256).cpu(), ops.kernel_argsort(x, block_n=256))
+
+
 _WIDE_NARROW_WIDE = """
 import torch
 from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
@@ -196,8 +269,30 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     assert torch.equal(ops.kernel_sort(x).cpu(), torch.sort(x.cpu()).values)
 
 
-def test_block_n_above_the_cap_raises(cuda):
-    x = torch.zeros(4 * kernels.MAX_BLOCK_N, device=cuda)
-    with pytest.raises(ValueError, match="MAX_BLOCK_N"):
-        kernels.block_sort(x, 2 * kernels.MAX_BLOCK_N)
-    assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
+def test_block_n_above_the_cap_is_composed(cuda):
+    # A tile above the cap is composed from launches at the cap (A, then per
+    # stage C and B, all with parity mask 2 * cap), each launch counted on its
+    # own kernel.
+    bn, n = 2 * kernels.MAX_BLOCK_N, 4 * kernels.MAX_BLOCK_N
+    x = _tie_keys(torch.float32, (2, n), seed=5)
+    r = torch.randperm(n, generator=torch.Generator().manual_seed(5), dtype=torch.int32)
+    r = r.expand(2, n).contiguous()
+    _assert_same_bits(kernels.block_sort(x.to(cuda), bn), kernels.block_sort(x, bn))
+    got, got_r = kernels.block_sort_kv(x.to(cuda), r.to(cuda), bn)
+    want, want_r = kernels.block_sort_kv(x, r, bn)
+    _assert_same_bits(got, want)
+    assert torch.equal(got_r.cpu(), want_r)
+    _assert_same_bits(kernels.block_merge(x.to(cuda), bn, n), kernels.block_merge(x, bn, n))
+    got, got_r = kernels.block_merge_kv(x.to(cuda), r.to(cuda), bn, n)
+    want, want_r = kernels.block_merge_kv(x, r, bn, n)
+    _assert_same_bits(got, want)
+    assert torch.equal(got_r.cpu(), want_r)
+    # A: one A launch, then stage 2*cap: one C and one B; B: one C, one B
+    assert kernels.launch_counts() == {
+        "block_sort": 1, "block_merge": 2, "global_stage": 2,
+        "block_sort_kv": 1, "block_merge_kv": 2, "global_stage_kv": 2,
+    }
+    y = _keys(torch.float32, (3, 100_000), seed=6)
+    assert torch.equal(ops.kernel_sort(y.to(cuda), block_n=bn).cpu(), torch.sort(y, dim=-1).values)
+    idx = ops.kernel_argsort(y.to(cuda), block_n=bn)
+    assert torch.equal(idx.cpu().long(), torch.sort(y, dim=-1, stable=True).indices)

@@ -3,8 +3,9 @@
 ``impl='kernel'`` (the CUDA kernels' plain versions on CPU tensors) is held
 against the reference's ``impl='pallas'`` (interpret mode), and
 ``impl='xla'`` (``torch.sort(stable=True)``) against ``impl='xla'``
-(``jnp.argsort(stable=True)``).  Permutations and gathered payloads are
-compared exactly.
+(``jnp.argsort(stable=True)``).  Permutations and gathered payloads (any
+nest of dicts, lists and tuples, as the reference's pytree) are compared
+exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -68,6 +69,31 @@ def test_sort_pairs_matches_reference(impl):
     assert_bits_equal(got_v, want_v)
 
 
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_sort_kv_takes_any_pytree_like_the_reference(impl):
+    """A tuple payload and a nest of dicts and lists come back in their
+    structure, each leaf permuted like the reference's."""
+    keys = make_keys("int32", 200, seed=38, duplicates=True)
+    rng = np.random.default_rng(39)
+    a, b = rng.standard_normal((200, 3)).astype(np.float32), np.arange(200, dtype=np.int32)
+    c = rng.integers(0, 9, 200).astype(np.int32)
+    for values in ((a, b), {"x": [a, {"y": b}], "z": (c,)}):
+        got_k, got_v = kv.sort_kv(cpu(keys), jax.tree.map(cpu, values), impl=impl, block_n=64)
+        want_k, want_v = ref_kv.sort_kv(jnp.asarray(keys), jax.tree.map(jnp.asarray, values),
+                                        impl=_REF_IMPL[impl], block_n=64)
+        assert_bits_equal(got_k, want_k)
+        assert jax.tree.structure(jax.tree.map(np.asarray, want_v)) == jax.tree.structure(
+            jax.tree.map(lambda t: t.numpy(), got_v))
+        for g, w in zip(jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), got_v)), jax.tree.leaves(want_v)):
+            assert_bits_equal(g, w)
+    got_k, got_v = kv.sort_pairs(cpu(keys), (cpu(a), cpu(b)), impl=impl, block_n=64)
+    want_k, want_v = ref_kv.sort_kv(jnp.asarray(keys), (jnp.asarray(a), jnp.asarray(b)),
+                                    impl=_REF_IMPL[impl], block_n=64)
+    assert isinstance(got_v, tuple) and len(got_v) == 2
+    assert_bits_equal(got_v[0], want_v[0])
+    assert_bits_equal(got_v[1], want_v[1])
+
+
 @pytest.mark.parametrize("largest", [True, False])
 @pytest.mark.parametrize("impl", ["kernel", "xla"])
 def test_topk_matches_reference_with_ties(impl, largest):
@@ -98,6 +124,32 @@ def test_rev_key_matches_reference(dtype):
     got = kv._rev_key(cpu(x))
     assert got.dtype == cpu(x).dtype
     assert_bits_equal(got, ref_kv._rev_key(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32], ids=lambda d: d.__name__)
+@pytest.mark.parametrize("impl", ["kernel", "xla"])
+def test_descending_unsigned_keys_match_reference(impl, dtype):
+    """argsort / sort_kv / topk with the order reversed on unsigned keys,
+    extremes and duplicates included."""
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(38)
+    x = rng.integers(info.min, info.max, (2, 300), endpoint=True).astype(dtype)
+    x[:, ::7] = x[:, [3]]
+    x[:, [0, 50]], x[:, [10, 11]] = info.max, info.min
+    ref_impl = _REF_IMPL[impl]
+    got = kv.argsort(cpu(x), ascending=False, impl=impl, block_n=64)
+    want = ref_kv.argsort(jnp.asarray(x), ascending=False, impl=ref_impl, block_n=64)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), np.argsort(-x.astype(np.int64), axis=-1, kind="stable"))
+    got_k, got_v = kv.sort_kv(cpu(x[0]), [cpu(x[1])], ascending=False, impl=impl, block_n=64)
+    want_k, want_v = ref_kv.sort_kv(jnp.asarray(x[0]), [jnp.asarray(x[1])], ascending=False,
+                                    impl=ref_impl, block_n=64)
+    assert_bits_equal(got_k, want_k)
+    assert_bits_equal(got_v[0], want_v[0])
+    got_v, got_i = kv.topk(cpu(x), 20, impl=impl, block_n=64)
+    want_v, want_i = ref_kv.topk(jnp.asarray(x), 20, impl=ref_impl, block_n=64)
+    assert_bits_equal(got_v, want_v)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
 
 
 def test_mesh_and_unknown_impl_raise():

@@ -3,9 +3,8 @@ B, the plan core, the sort front door, the slab math and the carry helpers.
 
 Inputs are seeded numpy arrays; the port runs on CPU tensors (the kernels'
 plain versions), the reference on JAX's CPU backend (Pallas in interpret
-mode).  Results from networks and merges are compared bit for bit; the
-``'xla'`` local sort is compared by value, since neither library sort
-promises where -0.0 and +0.0 land among equal keys.
+mode).  Results are compared bit for bit, the ``'xla'`` local sort too:
+both library sorts are stable, so -0.0 and +0.0 keep their input order.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -86,8 +85,50 @@ def test_kernel_ops_reject_bad_shapes():
         ops.kernel_argsort(torch.zeros(0))
     with pytest.raises(ValueError):
         ops.kernel_sort_kv(torch.zeros(2, 4), {})
-    with pytest.raises(ValueError):  # above the shared-memory tile cap
-        ops.kernel_sort(torch.zeros(4 * ops.MAX_BLOCK_N), block_n=2 * ops.MAX_BLOCK_N)
+    # a tile above the shared-memory cap is taken, as the reference takes it
+    x = make_keys("float32", 4 * ops.MAX_BLOCK_N, seed=9)
+    want = ref_ops.pallas_sort(jnp.asarray(x), block_n=2 * ops.MAX_BLOCK_N, interpret=True)
+    assert_bits_equal(ops.kernel_sort(cpu(x), block_n=2 * ops.MAX_BLOCK_N), want)
+
+
+def test_kernel_argsort_takes_tiles_above_the_cap():
+    x = make_keys("int32", 4 * ops.MAX_BLOCK_N, seed=8, duplicates=True)
+    want = ref_ops.pallas_argsort(jnp.asarray(x), block_n=2 * ops.MAX_BLOCK_N, interpret=True)
+    np.testing.assert_array_equal(
+        ops.kernel_argsort(cpu(x), block_n=2 * ops.MAX_BLOCK_N).numpy(), np.asarray(want)
+    )
+
+
+NARROW = ["int8", "uint8", "int16", "uint16", "uint32"]
+
+
+@pytest.mark.parametrize("dtype", NARROW)
+def test_kernel_ops_take_narrow_integer_keys(dtype):
+    """Through the int32 network by an order-preserving map: the same dtype
+    and bits as the reference's kernels, extremes and duplicates included."""
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(7)
+    x = rng.integers(info.min, info.max, 300, endpoint=True).astype(dtype)
+    x[::7] = x[3]
+    x[[0, 50, 299]], x[[10, 11]] = info.max, info.min  # keys equal to the pad sentinel
+    got = ops.kernel_sort(cpu(x), block_n=64)
+    want = ref_ops.pallas_sort(jnp.asarray(x), block_n=64, interpret=True)
+    assert got.dtype == cpu(x).dtype
+    assert_bits_equal(got, want)
+    perm = ops.kernel_argsort(cpu(x), block_n=64)
+    want_perm = ref_ops.pallas_argsort(jnp.asarray(x), block_n=64, interpret=True)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(want_perm))
+    got_k, got_v = ops.kernel_sort_kv(cpu(x), {"k": cpu(x)}, block_n=64)
+    want_k, want_v = ref_ops.pallas_sort_kv(jnp.asarray(x), {"k": jnp.asarray(x)}, block_n=64,
+                                            interpret=True)
+    assert_bits_equal(got_k, want_k)
+    assert_bits_equal(got_v["k"], want_v["k"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int64, torch.float64], ids=str)
+def test_kernel_ops_say_why_they_reject_a_key_dtype(dtype):
+    with pytest.raises(TypeError, match="reference"):
+        ops.kernel_sort(torch.zeros(8, dtype=dtype))
 
 
 @pytest.mark.parametrize("shape,block_n", [((3, 64), 64), ((2, 3, 100), 32), ((4, 10), 1024)])
@@ -138,14 +179,12 @@ _IMPLS = {"xla": "xla", "bitonic": "bitonic", "kernel": "pallas", "merge": "merg
 @pytest.mark.parametrize("impl", list(_IMPLS))
 def test_fast_local_sort_matches_reference(impl, ascending):
     x = make_keys("float32", (2, 100), seed=18)
+    x[:, ::3] = np.where(np.arange(x[:, ::3].size).reshape(2, -1) % 2, -0.0, 0.0)  # mixed +-0
     got = seqsort.fast_local_sort(cpu(x), ascending=ascending, impl=impl, block_n=32)
     want = ref_seqsort.fast_local_sort(
         jnp.asarray(x), ascending=ascending, impl=_IMPLS[impl], block_n=32
     )
-    if impl == "xla":
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    else:
-        assert_bits_equal(got, want)
+    assert_bits_equal(got, want)
 
 
 def test_fast_local_sort_rejects_the_reference_impl_name():
