@@ -19,6 +19,23 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            against torch.sort(stable=True), with an (n, 4) float32 payload
   topk     top-50 of (8, 151936) float32 logits with ties put in on purpose,
            impl="kernel" against impl="xla"
+  cluster  model D (cluster_sort, local_impl="kernel", block_n 1024) on a
+           one-rank NCCL group: 10,000,000 float32 keys in modes splitters,
+           sample and radix, and 10,000,000 int32 keys in [0, 10^7) in the
+           paper's decimal mode (digits 7, ten buckets); valid keys against
+           the plain bitonic network (bits) and torch.sort (values), counts
+           summing to n, retries and peak from the telemetry callback, time
+           per call beside repro_torch.sort (model B) and torch.sort, launches
+           per call, device time and idle share from torch.profiler
+  cluster_kv  cluster_sort_kv, argsort(mesh=) and sort_kv(mesh=) with an
+           (n, 4) float32 payload, of 10,000,000 duplicate-heavy int32 keys on
+           the same group, against torch.argsort(stable=True)
+  cluster_ranks  four ranks on the one card (spawned processes, a gloo group
+           meeting through a FileStore under build/), 2,500,000 keys each:
+           model D (splitters, sample, decimal) and model C with the kernels,
+           and cluster_sort_kv, every rank's block checked against torch.sort /
+           torch.argsort(stable=True) of the whole input; its times are those
+           of gloo's host-staged wire, not of the exchange on NCCL
   block_n_sweep  the three paths' times at tile widths 1024, 4096, 16384
   paths    each path's time beside its library yardstick, and its device
            kernel time and idle share from torch.profiler; torch.sort of
@@ -30,13 +47,18 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            under other launch geometries than _tile_geometry's (two tiles a
            block, the next E), each bit-equal to the default
 
-then the kernels line (launches on the main path, time per launch, bound
-(the larger of the bytes' and the compare-exchanges' least time), its share, plain and library times; the library time of A, B and
+The mesh phases' lines carry the card's name and power limit as nvidia-smi
+gives them.  Then the kernels line (launches on every path, time per
+launch, bound (the larger of the bytes' and the compare-exchanges' least
+time), its share, plain and library times; the library time of A, B and
 their kv twins is torch.sort over the same tiles, which the port never
 calls) and, last, the ok line.  Any failed check raises, so the script exits
 nonzero and prints no ok line.  Times come from CUDA events after warm-up,
-averaged over the repetitions the lines name.
+averaged over the repetitions the lines name; the mesh phases' calls read
+results on the host, so they are timed by the host clock, each call ending
+in a synchronize.
 """
+import datetime
 import json
 import os
 import subprocess
@@ -44,6 +66,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -53,6 +76,8 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (same sh
 SORT_N = 10_000_000  # the largest size of the repo's paper figures (benchmarks/run.py)
 VOCAB = 151_936  # qwen3-0.6b's vocabulary (src/repro/configs/qwen3_0_6b.py)
 SOURCE = "src/repro_torch/kernels/bitonic_sort/csrc/bitonic_sort.cu"
+RANKS = 4  # cluster_ranks: ranks on the one card
+DECIMAL_DIGITS = 7  # the paper's decimal scheme over keys in [0, 10^7)
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
     "block_sort": f"{PALLAS}:88",
@@ -275,6 +300,178 @@ def tile_variants(kernels, xs, kv_keys, kv_r, bn: int) -> dict:
     return out
 
 
+def ms_per_call(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` by the host clock, each call ending in a
+    synchronize: for calls that read results on the host (the retry loop)
+    and for ranks whose wire is staged through host memory."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_cluster(kernels, group, device, gen, add) -> dict:
+    """Model D on a one-rank NCCL group, with the kernels."""
+    import repro_torch
+    from repro_torch.core.cluster_sort import cluster_sort
+
+    x = torch.randn(SORT_N, generator=gen, device=device) * 1000
+    dec = torch.randint(0, 10 ** DECIMAL_DIGITS, (SORT_N,), generator=gen, device=device,
+                        dtype=torch.int32)
+    sorted_x = torch.sort(x).values
+    out = {}
+    for mode, keys in (("splitters", x), ("sample", x), ("radix", x), ("decimal", dec)):
+        seen = []
+        kw = dict(mode=mode, digits=DECIMAL_DIGITS, telemetry=lambda **t: seen.append(t))
+
+        def call(kw=kw, keys=keys):
+            return cluster_sort(keys, group, local_impl="kernel", block_n=1024, **kw)
+
+        (slab, valid), counts = counted(kernels, call)
+        add(counts)
+        check(counts == expected_launches(slab.shape[0], 1024, kv=False),
+              f"cluster {mode}: launches {counts} for a slab of {slab.shape[0]}")
+        plain_slab, plain_valid = cluster_sort(keys, group, local_impl="bitonic", **kw)
+        check(torch.equal(valid, plain_valid), f"cluster {mode}: valid differs from the plain path")
+        got = slab[valid]
+        check(same_bits(got, plain_slab[plain_valid]),
+              f"cluster {mode}: keys differ from the plain bitonic network")
+        check(torch.equal(got, sorted_x if keys is x else torch.sort(dec).values),
+              f"cluster {mode}: values differ from torch.sort")
+        check(int(valid.sum()) == SORT_N and bool(torch.isfinite(got.float()).all()),
+              f"cluster {mode}: counts or finiteness")
+        tel = seen[0]
+        ms = ms_per_call(call, reps=3)
+        prof = device_profile(call)
+        out[mode] = {"dtype": str(keys.dtype).replace("torch.", ""), "slab": slab.shape[0],
+                     "capacity": tel["capacity"], "retries": tel["retries"], "peak": tel["peak"],
+                     "overflowed": tel["overflowed"], "launches_per_call": counts, "ms": ms,
+                     "reps": 3, "device_ms": prof["device_ms"],
+                     "device_idle_share": 1.0 - prof["device_ms"] / ms if prof["device_ms"] else None,
+                     "top_device_kernels_ms": prof["top"],
+                     "bitwise_equal_plain_bitonic": True, "equal_torch_sort": True}
+    return {"n": SORT_N, "ranks": group.size, "backend": "nccl", "block_n": 1024,
+            "modes": out,
+            "model_b_ms": time_ms(lambda: repro_torch.sort(x, strategy="shared", local_impl="kernel",
+                                                           n_threads=8), reps=3),
+            "torch_sort_ms": time_ms(lambda: torch.sort(x), reps=5),
+            "torch_sort_decimal_keys_ms": time_ms(lambda: torch.sort(dec), reps=5)}
+
+
+def phase_cluster_kv(group, device, gen) -> dict:
+    """Model D with a payload and the mesh kv front doors on the same group."""
+    from repro_torch import engine
+
+    keys = torch.randint(0, 1000, (SORT_N,), generator=gen, device=device, dtype=torch.int32)
+    iota = torch.arange(SORT_N, dtype=torch.int32, device=device)
+    payload = torch.randn(SORT_N, 4, generator=gen, device=device)
+    want = torch.argsort(keys, stable=True)
+    slab_k, slab_v, valid = engine.cluster_sort_kv(keys, {"i": iota}, group)
+    check(torch.equal(slab_v["i"][valid].long(), want) and torch.equal(slab_k[valid], keys[want]),
+          "cluster_sort_kv: differs from torch.argsort(stable=True)")
+    idx = engine.argsort(keys, mesh=group)
+    check(idx.dtype == torch.int32 and torch.equal(idx.long(), want),
+          "argsort(mesh=): differs from torch.argsort(stable=True)")
+    k, v = engine.sort_kv(keys, {"p": payload}, mesh=group)
+    check(torch.equal(k, keys[want]) and torch.equal(v["p"], payload[want]),
+          "sort_kv(mesh=): differs from the stable sort")
+    prof = {name: device_profile(fn)
+            for name, fn in (("argsort_mesh", lambda: engine.argsort(keys, mesh=group)),
+                             ("sort_kv_mesh", lambda: engine.sort_kv(keys, {"p": payload}, mesh=group)))}
+    return {"n": SORT_N, "ranks": group.size, "backend": "nccl", "key_range": [0, 1000],
+            "payload": [SORT_N, 4], "equal_torch_argsort_stable": True, "reps": 3,
+            "device_profile": prof,
+            "ms": {"cluster_sort_kv": ms_per_call(lambda: engine.cluster_sort_kv(keys, {"i": iota}, group), 3),
+                   "argsort_mesh": ms_per_call(lambda: engine.argsort(keys, mesh=group), 3),
+                   "sort_kv_mesh": ms_per_call(lambda: engine.sort_kv(keys, {"p": payload}, mesh=group), 3),
+                   "torch_argsort_stable": time_ms(lambda: torch.argsort(keys, stable=True), reps=3)}}
+
+
+def cluster_rank(rank: int, world: int, store: str, result: str) -> None:
+    """One rank of phase cluster_ranks (a spawned process): its block of each
+    mesh sort, checked against the library sort of the whole input."""
+    from repro_torch.core import cluster_sort, distributed_merge_sort
+    from repro_torch.engine import cluster_sort_kv
+    from repro_torch.exchange import AxisGroup
+    from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        group = AxisGroup()
+        gen = torch.Generator(device="cuda").manual_seed(7)  # the same whole input on every rank
+        x = torch.randn(SORT_N, generator=gen, device="cuda") * 1000
+        dec = torch.randint(0, 10 ** DECIMAL_DIGITS, (SORT_N,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        dup = torch.randint(0, 1000, (SORT_N,), generator=gen, device="cuda", dtype=torch.int32)
+        m = SORT_N // world
+        mine = slice(rank * m, (rank + 1) * m)
+
+        def block_check(got, want, what):
+            counts = group.all_gather(torch.tensor([got.shape[0]], device="cuda")).view(-1)
+            start = int(counts[:rank].sum())
+            check(int(counts.sum()) == SORT_N, f"{what}: counts sum to {int(counts.sum())}")
+            check(torch.equal(got, want[start:start + got.shape[0]]), f"{what}: rank {rank} differs")
+
+        report = {"launches": {}, "ms": {}}
+        for mode, keys in (("splitters", x), ("sample", x), ("decimal", dec)):
+            def call(mode=mode, keys=keys):
+                return cluster_sort(keys[mine], group, mode=mode, digits=DECIMAL_DIGITS,
+                                    local_impl="kernel", block_n=1024)
+            (slab, valid), counts = counted(kernels, call)
+            report["launches"][f"cluster_{mode}"] = counts
+            block_check(slab[valid], torch.sort(keys).values, f"cluster_ranks {mode}")
+            report["ms"][f"cluster_{mode}"] = ms_per_call(call, reps=2)
+        call = lambda: distributed_merge_sort(x[mine], group, local_impl="kernel", block_n=1024)
+        buf, counts = counted(kernels, call)
+        report["launches"]["merge_tree"] = counts
+        if rank == 0:
+            check(torch.equal(buf, torch.sort(x).values), "cluster_ranks model C: rank 0 differs")
+        report["ms"]["merge_tree"] = ms_per_call(call, reps=2)
+        iota = torch.arange(SORT_N, dtype=torch.int32, device="cuda")
+        call = lambda: cluster_sort_kv(dup[mine], {"i": iota[mine]}, group)
+        slab_k, slab_v, valid = call()
+        block_check(slab_v["i"][valid].long(), torch.argsort(dup, stable=True), "cluster_ranks kv")
+        report["ms"]["cluster_sort_kv"] = ms_per_call(call, reps=2)
+        with open(f"{result}.{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_cluster_ranks(add) -> dict:
+    """Four spawned ranks on the one card over gloo (NCCL takes one rank a
+    card); any rank's failure fails the phase."""
+    import torch.multiprocessing as mp
+
+    work = os.path.join(ROOT, "build", "cluster_ranks")
+    os.makedirs(work, exist_ok=True)
+    store, result = os.path.join(work, f"store.{os.getpid()}"), os.path.join(work, "result")
+    for path in [store] + [f"{result}.{r}.json" for r in range(RANKS)]:
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    mp.start_processes(cluster_rank, args=(RANKS, store, result), nprocs=RANKS, join=True,
+                       start_method="spawn")
+    reports = []
+    for r in range(RANKS):
+        with open(f"{result}.{r}.json") as f:
+            reports.append(json.load(f))
+    for rep in reports:
+        for counts in rep["launches"].values():
+            add(counts)
+    return {"ranks": RANKS, "backend": "gloo (host-staged CUDA tensors)", "n": SORT_N,
+            "keys_a_rank": SORT_N // RANKS, "seconds": time.perf_counter() - t0,
+            "launches_rank0": reports[0]["launches"],
+            "host_staged_ms_rank0": reports[0]["ms"], "reps": 2,
+            "checked": ["cluster splitters", "cluster sample", "cluster decimal", "model C",
+                        "cluster_sort_kv"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this script needs one card")
@@ -366,6 +563,32 @@ def main() -> None:
           "equal_impl_xla": True})
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
+
+    # -- the mesh paths: model D and its kv twin on a one-rank NCCL group,
+    # then models C and D on four gloo ranks sharing the card
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        from repro_torch.exchange import AxisGroup
+
+        group = AxisGroup()
+        mesh_counts = {k: 0 for k in REPLACES}
+
+        def add_mesh(counts):
+            add(counts)
+            for k, v in counts.items():
+                mesh_counts[k] += v
+
+        print(smi, flush=True)
+        emit({"phase": "cluster", "nvidia_smi": smi, **phase_cluster(kernels, group, device, gen, add_mesh)})
+        print(smi, flush=True)
+        emit({"phase": "cluster_kv", "nvidia_smi": smi, **phase_cluster_kv(group, device, gen)})
+    finally:
+        dist.destroy_process_group()
+    print(smi, flush=True)
+    emit({"phase": "cluster_ranks", "nvidia_smi": smi, **phase_cluster_ranks(add_mesh)})
+    for k in ("block_sort", "block_merge", "global_stage"):
+        check(mesh_counts[k] > 0, f"kernel {k} was not launched on the model-D path")
 
     # -- path times beside their library yardsticks
     paths = {

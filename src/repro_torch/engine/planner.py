@@ -2,10 +2,10 @@
 
 A ``SortPlan`` pins one concrete execution recipe (strategy, local sort impl,
 thread count, capacity factor, partitioner mode, kernel tile width).
-``run_plan`` executes it.  This slice runs the single-device strategy
-``'shared'`` (paper models A/B); the mesh strategies, the ``Planner`` with
-its autotune sweep and the JSON plan cache are later slices (ROADMAP
-Queue 1).
+``run_plan`` executes it: ``'shared'`` (paper models A/B) on one device,
+``'distributed_merge'`` (model C) and ``'cluster'`` (model D) across the
+ranks of a process group.  The ``Planner`` with its autotune sweep and the
+JSON plan cache are a later slice (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.cluster_sort import cluster_sort
+from repro_torch.core.distributed_sort import distributed_merge_sort
 from repro_torch.core.shared_sort import shared_memory_sort
 from repro_torch.exchange import partition_of
 
@@ -26,11 +28,6 @@ __all__ = [
 
 # strategy names: 'shared' covers paper models A/B (A = local_impl='merge',
 # B = local_impl='xla'/'bitonic'/'kernel'); C and D keep their api.py names.
-# The ROADMAP Queue 1 item that ports each mesh strategy
-_NOT_PORTED = {
-    "cluster": "ROADMAP Queue 1 item 5 (exchange and model D)",
-    "distributed_merge": "ROADMAP Queue 1 item 6 (model C)",
-}
 
 
 @dataclass(frozen=True)
@@ -120,7 +117,9 @@ def run_plan(
     ascending: bool = True,
     **kwargs,
 ):
-    """Execute a plan on ``x`` where it lives.
+    """Execute a plan on ``x`` where it lives.  Cluster plans return
+    ``(slab, valid)`` like ``cluster_sort``; mesh plans take ``mesh=`` (an
+    ``AxisGroup`` or a ``ProcessGroup``) and this rank's shard.
 
     >>> run_plan(SortPlan("shared"), torch.tensor([3, 1, 2])).tolist()
     [1, 2, 3]
@@ -138,8 +137,16 @@ def run_plan(
             ascending=ascending,
             block_n=plan.block_n,
         )
-    if plan.strategy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"plan strategy {plan.strategy!r} is not ported yet: {_NOT_PORTED[plan.strategy]}"
-        )
-    raise ValueError(f"unknown plan strategy {plan.strategy!r}")
+    if plan.strategy not in ("distributed_merge", "cluster"):
+        raise ValueError(f"unknown plan strategy {plan.strategy!r}")
+    if mesh is None:
+        raise ValueError(f"plan strategy {plan.strategy!r} requires mesh=")
+    kwargs.setdefault("local_impl", plan.local_impl)
+    kwargs.setdefault("block_n", plan.block_n)
+    if plan.strategy == "distributed_merge":
+        out = distributed_merge_sort(x, mesh, axis, **kwargs)
+        return out if ascending else torch.flip(out, dims=(-1,))
+    # partitioner_mode folds the plan's partition override in
+    kwargs.setdefault("mode", plan.partitioner_mode())
+    kwargs.setdefault("capacity_factor", plan.capacity_factor)
+    return cluster_sort(x, mesh, axis, **kwargs)

@@ -153,9 +153,11 @@ def test_descending_unsigned_keys_match_reference(impl, dtype):
 
 
 def test_mesh_and_unknown_impl_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the mesh paths are ported (tests/test_torch_cluster.py): what is not a
+    # process group is refused
+    with pytest.raises(TypeError, match="AxisGroup or a torch.distributed ProcessGroup"):
         kv.argsort(torch.zeros(8), mesh=object(), axis="x")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="AxisGroup or a torch.distributed ProcessGroup"):
         kv.sort_kv(torch.zeros(8), {}, mesh=object(), axis="x")
     with pytest.raises(ValueError):
         kv.argsort(torch.zeros(8), impl="pallas")

@@ -286,10 +286,15 @@ def test_sort_plan_methods_match_reference():
 
 
 def test_mesh_strategies_raise_not_implemented():
+    # the mesh strategies are ported (tests/test_torch_cluster.py); they
+    # refuse what the reference refuses, and what is not a process group
     for strategy in ("cluster", "distributed_merge"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="requires mesh="):
             planner.run_plan(planner.plan_from_strategy(strategy), torch.zeros(8))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ascending only"):
+        planner.run_plan(planner.SortPlan("cluster"), torch.zeros(8), mesh=object(),
+                         ascending=False)
+    with pytest.raises(TypeError, match="AxisGroup or a torch.distributed ProcessGroup"):
         repro_torch.sort(torch.zeros(8), mesh=object(), axis="x")
     with pytest.raises(ValueError):
         planner.plan_from_strategy("quantum")
