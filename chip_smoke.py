@@ -35,7 +35,13 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            model D (splitters, sample, decimal) and model C with the kernels,
            and cluster_sort_kv, every rank's block checked against torch.sort /
            torch.argsort(stable=True) of the whole input; its times are those
-           of gloo's host-staged wire, not of the exchange on NCCL
+           of gloo's host-staged wire, not of the exchange on NCCL.  Each rank
+           also calls repro_torch.sort(x, mesh=group) five times on
+           zipf-skewed keys (mode radix) through the default planner, whose
+           plan file (REPRO_SORT_PLANS) the ranks share under build/, and
+           runs one rank-coordinated Planner.autotune over two model-D
+           candidates: every rank must hold the same plan and rank 0 alone
+           writes the file
   block_n_sweep  the three paths' times at tile widths 1024, 4096, 16384
   paths    each path's time beside its library yardstick, and its device
            kernel time and idle share from torch.profiler; torch.sort of
@@ -46,6 +52,30 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
   tile_variants  kernels A, A-kv, B and B-kv at the main path's shapes
            under other launch geometries than _tile_geometry's (two tiles a
            block, the next E), each bit-equal to the default
+  autotune a fresh Planner backed by build/serve/plans.json sweeps the full
+           one-device grid (xla, bitonic, merge, kernel at block_n 256, 512
+           and 1024) for int32 and float32 at buckets 4096, 2^20 and 2^24,
+           reps 3: every candidate's microseconds and each cell's winner; a
+           second Planner reloads the file and must hold the same plans
+  serve    a SortService whose planner pins every cell to the reference's
+           'pallas' plan mapped to the port's kernel plan (block_n 1024): a
+           seeded ragged batch of 64 requests of 2^8 .. 2^22 int32 / float32
+           keys (sort, argsort, sort_kv with an (n, 4) float32 payload,
+           descending argsort), then one request of 10,000,000 keys, each
+           result against np.sort / np.argsort(kind="stable"); the same
+           traffic again builds no new cell and loads no library; requests/s,
+           keys/s, cells built and hit, launches, device time and idle share
+  queue    8 producer threads x 32 requests of 4096 int32 keys through an
+           AsyncSortService (max_batch 16): every future right; fill ratio,
+           queue-latency p50/p90/p99
+  frontend a SortFrontend with tenants web (priority 0, weight 3) and batch
+           (priority 1, weight 1), warmed over its batch ladder for the
+           trace's buckets, replays make_trace(duration_s=5, rates web 200 /
+           batch 50 a second, the reference's size mix 256 .. 4096, zipf_a
+           1.2, seed 11) in real time, then the same trace at 20x the rates:
+           every completed ticket against np.sort; p50/p95/p99 latency,
+           SLO-met share, goodput, sheds by reason, the first request's
+           latency beside the median
 
 The mesh phases' lines carry the card's name and power limit as nvidia-smi
 gives them.  Then the kernels line (launches on every path, time per
@@ -63,8 +93,10 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -78,6 +110,17 @@ VOCAB = 151_936  # qwen3-0.6b's vocabulary (src/repro/configs/qwen3_0_6b.py)
 SOURCE = "src/repro_torch/kernels/bitonic_sort/csrc/bitonic_sort.cu"
 RANKS = 4  # cluster_ranks: ranks on the one card
 DECIMAL_DIGITS = 7  # the paper's decimal scheme over keys in [0, 10^7)
+LEARNING_CALLS = 5  # cluster_ranks: mesh sorts through the default planner
+AUTOTUNE_BUCKETS = (4096, 1 << 20, 1 << 24)
+SERVE_REQUESTS = 64
+SERVE_LENGTHS = (1 << 8, 1 << 22)  # log-uniform request lengths
+QUEUE_THREADS, QUEUE_REQUESTS, QUEUE_N = 8, 32, 4096
+# the frontend's tenants: an interactive class and a batch class, with the
+# SLOs of the reference's multi-tenant frontend bench
+# (benchmarks/engine_bench.py: web 40 ms, batch 200 ms)
+TENANTS = (("web", 3.0, 0, 40.0), ("batch", 1.0, 1, 200.0))  # name, weight, priority, slo_ms
+TRACE = dict(duration_s=5.0, rates={"web": 200.0, "batch": 50.0}, zipf_a=1.2, seed=11)
+OVERLOAD = 20  # the second replay's rate multiple
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
     "block_sort": f"{PALLAS}:88",
@@ -197,16 +240,19 @@ def expected_launches(n: int, block_n: int, kv: bool) -> dict:
 
 
 def device_profile(fn) -> dict:
-    """One call of ``fn`` under torch.profiler: device kernel time (ms), total
-    and the largest six by kernel name."""
+    """One call of ``fn`` under torch.profiler, after one unprofiled call:
+    device kernel time (ms), total and the largest six by kernel name, and
+    the call's host-clock ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -217,7 +263,7 @@ def device_profile(fn) -> dict:
         if us > 0:
             by_kernel[ev.key[:120]] = by_kernel.get(ev.key[:120], 0.0) + us / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    return {"device_ms": sum(by_kernel.values()), "top": top}
+    return {"device_ms": sum(by_kernel.values()), "top": top, "wall_ms": wall_ms}
 
 
 def counted(kernels, fn):
@@ -390,11 +436,17 @@ def phase_cluster_kv(group, device, gen) -> dict:
                    "torch_argsort_stable": time_ms(lambda: torch.argsort(keys, stable=True), reps=3)}}
 
 
-def cluster_rank(rank: int, world: int, store: str, result: str) -> None:
+def cluster_rank(rank: int, world: int, store: str, result: str, plans: str, tuned: str) -> None:
     """One rank of phase cluster_ranks (a spawned process): its block of each
-    mesh sort, checked against the library sort of the whole input."""
+    mesh sort, checked against the library sort of the whole input; the
+    capacity-learning loop through the default planner (backed by
+    ``plans``, shared by the ranks); a rank-coordinated autotune into
+    ``tuned``."""
+    os.environ["REPRO_SORT_PLANS"] = plans  # before the default planner exists
+    import repro_torch
     from repro_torch.core import cluster_sort, distributed_merge_sort
     from repro_torch.engine import cluster_sort_kv
+    from repro_torch.engine.planner import Planner, SortPlan, default_planner, plan_key
     from repro_torch.exchange import AxisGroup
     from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
 
@@ -437,6 +489,37 @@ def cluster_rank(rank: int, world: int, store: str, result: str) -> None:
         slab_k, slab_v, valid = call()
         block_check(slab_v["i"][valid].long(), torch.argsort(dup, stable=True), "cluster_ranks kv")
         report["ms"]["cluster_sort_kv"] = ms_per_call(call, reps=2)
+
+        # the capacity-learning loop: mesh sorts of skewed keys through the
+        # default planner, keyed by the global length
+        skewed = torch.from_numpy(
+            (np.random.default_rng(11).zipf(1.5, SORT_N) % 10_000).astype(np.int32)).cuda()
+        planner = default_planner()
+        key = plan_key(SORT_N, torch.int32, group)
+        report["learning"] = {"key": key, "calls": []}
+        for i in range(LEARNING_CALLS):
+            call = lambda: repro_torch.sort(skewed[mine], mesh=group, mode="radix",
+                                            local_impl="kernel", block_n=1024)
+            (slab, valid), counts = counted(kernels, call)
+            report["launches"][f"learning_{i}"] = counts
+            block_check(slab[valid], torch.sort(skewed).values, f"cluster_ranks learning call {i}")
+            obs = planner.telemetry.last(key)
+            check(obs is not None, "the mesh sort reported no telemetry to the default planner")
+            report["learning"]["calls"].append({
+                "retries": obs.retries, "capacity": obs.capacity, "peak": obs.peak,
+                "peak_mean_ratio": obs.peak_mean_ratio(),
+                "learned_factor": planner.capacity_factor_for(key),
+                "promotion": list(planner.promotion_state(key))})
+
+        # one rank-coordinated autotune over two model-D candidates
+        tuner = Planner(tuned, device="cuda")
+        t0 = time.perf_counter()
+        best = tuner.autotune(SORT_N, torch.float32, mesh=group, reps=1,
+                              candidates=[SortPlan("cluster", mode="splitters"),
+                                          SortPlan("cluster", mode="sample")])
+        report["autotune"] = {"best": best.to_dict(), "wrote": tuner.last_autotune_wrote,
+                              "key": plan_key(SORT_N, torch.float32, group),
+                              "seconds": time.perf_counter() - t0}
         with open(f"{result}.{rank}.json", "w") as f:
             json.dump(report, f)
     finally:
@@ -451,12 +534,13 @@ def phase_cluster_ranks(add) -> dict:
     work = os.path.join(ROOT, "build", "cluster_ranks")
     os.makedirs(work, exist_ok=True)
     store, result = os.path.join(work, f"store.{os.getpid()}"), os.path.join(work, "result")
-    for path in [store] + [f"{result}.{r}.json" for r in range(RANKS)]:
+    plans, tuned = os.path.join(work, "plans.json"), os.path.join(work, "tuned.json")
+    for path in [store, plans, tuned] + [f"{result}.{r}.json" for r in range(RANKS)]:
         if os.path.exists(path):
             os.remove(path)
     t0 = time.perf_counter()
-    mp.start_processes(cluster_rank, args=(RANKS, store, result), nprocs=RANKS, join=True,
-                       start_method="spawn")
+    mp.start_processes(cluster_rank, args=(RANKS, store, result, plans, tuned), nprocs=RANKS,
+                       join=True, start_method="spawn")
     reports = []
     for r in range(RANKS):
         with open(f"{result}.{r}.json") as f:
@@ -464,12 +548,273 @@ def phase_cluster_ranks(add) -> dict:
     for rep in reports:
         for counts in rep["launches"].values():
             add(counts)
+    # every rank learned the same table and holds rank 0's tuned plan, which
+    # rank 0 alone wrote
+    check(all(rep["learning"] == reports[0]["learning"] for rep in reports),
+          "cluster_ranks: the ranks learned different capacity tables")
+    check(all(rep["autotune"]["best"] == reports[0]["autotune"]["best"] for rep in reports),
+          "cluster_ranks: the ranks hold different tuned plans")
+    check([rep["autotune"]["wrote"] for rep in reports] == [True] + [False] * (RANKS - 1),
+          "cluster_ranks: a rank other than 0 wrote the plan file")
+    with open(tuned) as f:
+        doc = json.load(f)
+    auto = reports[0]["autotune"]
+    check(doc["plans"] == {auto["key"]: auto["best"]}, "cluster_ranks: the tuned plan file")
+    with open(plans) as f:
+        learned = json.load(f)["learned"]
+    learning = reports[0]["learning"]
+    check(learning["key"] in learned and learning["key"].startswith(f"{1 << 24}|int32|"),
+          "cluster_ranks: the learned entry is not under the global length's bucket")
     return {"ranks": RANKS, "backend": "gloo (host-staged CUDA tensors)", "n": SORT_N,
             "keys_a_rank": SORT_N // RANKS, "seconds": time.perf_counter() - t0,
             "launches_rank0": reports[0]["launches"],
             "host_staged_ms_rank0": reports[0]["ms"], "reps": 2,
+            "learning": learning, "learned_on_disk": learned[learning["key"]],
+            "autotune": auto,
             "checked": ["cluster splitters", "cluster sample", "cluster decimal", "model C",
-                        "cluster_sort_kv"]}
+                        "cluster_sort_kv", "capacity learning", "coordinated autotune"]}
+
+
+def kernel_planner(device, buckets=tuple(1 << b for b in range(3, 25)),
+                   dtypes=(torch.int32, torch.float32)):
+    """A planner that pins every cell in ``buckets`` x ``dtypes`` to the
+    reference's 'pallas' plan, mapped by ``carry`` to the port's kernel plan
+    (``SortPlan("shared", local_impl="kernel", block_n=1024)``).  Warmup
+    warms every cell a plan table names, so the frontend's table names only
+    its trace's."""
+    from repro_torch import carry
+    from repro_torch.engine.planner import plan_key
+
+    plan = {"strategy": "shared", "local_impl": "pallas", "block_n": 1024}
+    plans = {plan_key(b, d, device=device): plan for b in buckets for d in dtypes}
+    planner = carry.planner_from_reference({"version": 3, "plans": plans}, device=device)
+    check(all(p.local_impl == "kernel" for p in planner.plans.values()), "kernel_planner: mapping")
+    return planner
+
+
+def phase_autotune(kernels, device, add, buckets=AUTOTUNE_BUCKETS, reps: int = 3) -> dict:
+    """The full one-device grid at each bucket for int32 and float32, into a
+    fresh plan file; every candidate's microseconds (the planner's own
+    timings) and each cell's winner."""
+    from repro_torch.engine.planner import Planner, plan_key
+
+    path = os.path.join(ROOT, "build", "serve", "plans.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    label = lambda p: p.local_impl + (f"@{p.block_n}" if p.block_n else "")
+    cells = {}
+    planner = Planner(path, device=device)
+    for dtype in (torch.int32, torch.float32):
+        for nb in buckets:
+            best, counts = counted(kernels, lambda: planner.autotune(nb, dtype, reps=reps))
+            add(counts)
+            cells[plan_key(nb, dtype, device=device)] = {
+                "us": {label(p): p.us_per_call for p in planner.last_autotune_candidates},
+                "winner": label(best), "winner_us": best.us_per_call, "launches": counts}
+    reloaded = Planner(path, device=device)
+    check(reloaded.plans == planner.plans and len(reloaded.plans) == 2 * len(buckets),
+          "autotune: the reloaded plan file differs from the planner's plans")
+    for key, cell in cells.items():
+        check(len(cell["us"]) == 6, f"autotune {key}: {len(cell['us'])} candidates timed, not 6")
+    return {"plan_file": os.path.relpath(path, ROOT), "reps": reps, "cells": cells,
+            "reloaded_equal": True}
+
+
+def _serve_requests(rng, count, lengths):
+    lo, hi = np.log(lengths[0]), np.log(lengths[1])
+    out = []
+    for i in range(count):
+        n = int(np.exp(rng.uniform(lo, hi)))
+        keys = rng.integers(0, 1 << 16, n)  # ties on purpose: stability shows
+        out.append(keys.astype(np.int32 if i % 2 == 0 else np.float32))
+    return out
+
+
+def phase_serve(kernels, device, add, count=SERVE_REQUESTS, lengths=SERVE_LENGTHS,
+                big=SORT_N) -> dict:
+    """A seeded ragged batch of every kind and one 10M-key request through a
+    SortService on kernel plans; every result against numpy; the same
+    traffic again builds no cell and loads no library."""
+    from repro_torch.engine import SortService
+
+    svc = SortService(planner=kernel_planner(device), device=device)
+    rng = np.random.default_rng(21)
+    reqs = _serve_requests(rng, count, lengths)
+    kinds = [("sort", True), ("argsort", True), ("sort_kv", True), ("argsort", False)]
+    groups = {k: [r for i, r in enumerate(reqs) if i % len(kinds) == j] for j, k in enumerate(kinds)}
+    payloads = [rng.standard_normal((len(r), 4)).astype(np.float32) for r in groups[("sort_kv", True)]]
+    large = (rng.standard_normal(big) * 1000).astype(np.float32)
+
+    def traffic():
+        out = {k: svc.submit(rs, kind=k[0], ascending=k[1],
+                             values=payloads if k[0] == "sort_kv" else None)
+               for k, rs in groups.items()}
+        out["large"] = svc.submit([large])
+        return out
+
+    def verify(out):
+        for (kind, asc), rs in groups.items():
+            for i, (got, r) in enumerate(zip(out[(kind, asc)], rs)):
+                order = np.argsort(r if asc else -r.astype(np.float64), kind="stable")
+                if kind == "sort":
+                    check(np.array_equal(got, np.sort(r)), f"serve sort {i}: differs from np.sort")
+                elif kind == "argsort":
+                    check(got.dtype == np.int32 and np.array_equal(got, order),
+                          f"serve argsort {i} ascending={asc}: differs from np.argsort(stable)")
+                else:
+                    check(np.array_equal(got[0], r[order]) and np.array_equal(got[1], payloads[i][order]),
+                          f"serve sort_kv {i}: differs from the stable sort")
+        check(np.array_equal(out["large"][0], np.sort(large)), "serve 10M: differs from np.sort")
+
+    t0 = time.perf_counter()
+    out, cold_counts = counted(kernels, traffic)
+    cold_s = time.perf_counter() - t0
+    add(cold_counts)
+    verify(out)
+    for name in REPLACES:
+        check(cold_counts.get(name, 0) > 0, f"serve: kernel {name} was not launched")
+    misses, hits, loads = svc.cache.misses, svc.cache.hits, kernels._lib.cache_info().misses
+    t0 = time.perf_counter()
+    out, warm_counts = counted(kernels, traffic)
+    warm_s = time.perf_counter() - t0
+    add(warm_counts)
+    verify(out)
+    check(svc.cache.misses == misses and kernels._lib.cache_info().misses == loads,
+          "serve: repeated traffic built a new cell or loaded the library again")
+    kernels.reset_launch_counts()
+    prof = device_profile(traffic)
+    add(kernels.launch_counts())
+    n_req = count + 1
+    keys = sum(len(r) for r in reqs) + big
+    return {"requests": n_req, "keys": keys, "lengths": list(lengths), "block_n": 1024,
+            "cold_s": cold_s, "warm_s": warm_s, "requests_per_s": n_req / warm_s,
+            "keys_per_s": keys / warm_s, "cells_built": misses,
+            "cell_hits": svc.cache.hits - hits, "second_pass_new_cells": 0,
+            "library_loads": kernels._lib.cache_info().misses,
+            "launches_per_pass": warm_counts, "device_ms": prof["device_ms"],
+            "profiled_pass_ms": prof["wall_ms"],
+            "device_idle_share": 1.0 - prof["device_ms"] / prof["wall_ms"],
+            "top_device_kernels_ms": prof["top"],
+            "stats": {k: v for k, v in vars(svc.stats).items() if not k.startswith("_")}}
+
+
+def phase_queue(kernels, device, add, threads=QUEUE_THREADS, per_thread=QUEUE_REQUESTS,
+                n=QUEUE_N) -> dict:
+    """Producer threads through an AsyncSortService on kernel plans."""
+    from repro_torch.engine import AsyncSortService, SortService
+
+    svc = AsyncSortService(SortService(planner=kernel_planner(device), device=device),
+                           max_batch=16)
+    reqs = [[np.random.default_rng([t, j]).integers(0, 1 << 20, n).astype(np.int32)
+             for j in range(per_thread)] for t in range(threads)]
+    futs = [[None] * per_thread for _ in range(threads)]
+
+    def produce(t):
+        for j, r in enumerate(reqs[t]):
+            futs[t][j] = svc.submit_async(r)
+
+    def run():
+        workers = [threading.Thread(target=produce, args=(t,)) for t in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+            check(not w.is_alive(), "queue: a producer thread hung")
+        return [[f.result(timeout=300) for f in row] for row in futs]
+
+    t0 = time.perf_counter()
+    out, counts = counted(kernels, run)
+    seconds = time.perf_counter() - t0
+    svc.close()
+    add(counts)
+    for t in range(threads):
+        for j in range(per_thread):
+            check(np.array_equal(out[t][j], np.sort(reqs[t][j])), f"queue: thread {t} request {j}")
+    st = svc.stats
+    pct = st.latency_percentiles((50, 90, 99))
+    return {"threads": threads, "requests": threads * per_thread, "n": n, "max_batch": 16,
+            "seconds": seconds, "batches": st.coalesced_batches, "fill_ratio": st.fill_ratio(),
+            "queue_latency_ms": {f"p{p}": v * 1e3 for p, v in pct.items()}, "launches": counts}
+
+
+def _replay(fe, trace):
+    """``replay_wallclock`` with every admitted request's keys kept, so each
+    completed ticket can be checked against numpy.  Every ticket must end
+    with a result or a shed, and every offered request is either completed
+    or shed: a failed execution fails the phase."""
+    from repro_torch.engine.frontend import ShedError, replay_wallclock
+
+    sent = []
+    submit = fe.submit
+
+    def recording(tenant, keys, **kw):
+        ticket = submit(tenant, keys, **kw)
+        sent.append((ticket, keys))
+        return ticket
+
+    fe.submit = recording
+    try:
+        rep = replay_wallclock(fe, trace)
+    finally:
+        fe.submit = submit
+    done = 0
+    for ticket, keys in sent:
+        exc = ticket.future.exception(timeout=0)  # replay_wallclock waited for each
+        if exc is None:
+            check(np.array_equal(ticket.result(), np.sort(keys)), "frontend: a ticket's result")
+            done += 1
+        elif not isinstance(exc, ShedError):
+            raise exc
+    shed = sum(rep.shed_counts().values())
+    check(done + shed == rep.offered,
+          f"frontend: {done} completed + {shed} shed != {rep.offered} offered")
+    return rep, done
+
+
+def _load_summary(rep, done):
+    pct = rep.latency_percentiles((50, 95, 99))
+    met = sum(1 for t in rep.tickets if t.slo_met)
+    return {"offered": rep.offered, "completed": done, "elapsed_s": rep.elapsed_s,
+            "latency_ms": {f"p{p}": v * 1e3 for p, v in pct.items()},
+            "slo_met_share_of_completed": met / done if done else None,
+            "goodput": rep.goodput(), "goodput_by_tenant": {t: rep.goodput(t) for t, *_ in TENANTS},
+            "sheds": rep.shed_counts(),
+            "sheds_by_tenant": {t: rep.shed_counts(t) for t, *_ in TENANTS}}
+
+
+def phase_frontend(kernels, device, add, trace_kw=TRACE, overload=OVERLOAD) -> dict:
+    """The SLO frontend on kernel plans, warmed, replaying a seeded trace in
+    real time, then the same trace at ``overload`` times the rates."""
+    from repro_torch.engine import SortService
+    from repro_torch.engine.frontend import SortFrontend, Tenant, make_trace
+    from repro_torch.engine.frontend.loadgen import DEFAULT_SIZES
+
+    svc = SortService(planner=kernel_planner(device, DEFAULT_SIZES, (torch.int32,)), device=device)
+    fe = SortFrontend(svc, tenants=[Tenant(name, weight=w, priority=p, slo_ms=slo)
+                                    for name, w, p, slo in TENANTS], max_batch=16)
+    kernels.reset_launch_counts()
+    warm = fe.warmup(kinds=("sort",))  # the plan table's cells: the trace's buckets
+    misses = svc.cache.misses
+    fe.start()
+    trace = make_trace(sizes=DEFAULT_SIZES, **trace_kw)
+    rep, done = _replay(fe, trace)
+    first = next(t for t in rep.tickets if t.latency_s is not None and not t.future.exception())
+    steady = rep.latency_percentiles((50,))[50]
+    hot = dict(trace_kw, rates={t: r * overload for t, r in trace_kw["rates"].items()})
+    rep_hot, done_hot = _replay(fe, make_trace(sizes=DEFAULT_SIZES, **hot))
+    fe.close()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    add(counts)
+    check(svc.cache.misses == misses, "frontend: traffic built a cell the warmup missed")
+    check(set(rep_hot.shed_counts()) <= {"tenant_backlog", "global_backlog", "deadline"},
+          "frontend: a shed without a known reason")
+    return {"tenants": [dict(zip(("name", "weight", "priority", "slo_ms"), t)) for t in TENANTS],
+            "max_batch": 16, "sizes": list(DEFAULT_SIZES), "trace": trace_kw,
+            "warmup": {"cells": len(warm.cells), "built": warm.compiled, "seconds": warm.elapsed_s},
+            "base": _load_summary(rep, done),
+            "first_request_ms": first.latency_s * 1e3, "median_ms": steady * 1e3,
+            f"x{overload}": _load_summary(rep_hot, done_hot), "launches": counts}
 
 
 def main() -> None:
@@ -589,6 +934,14 @@ def main() -> None:
     emit({"phase": "cluster_ranks", "nvidia_smi": smi, **phase_cluster_ranks(add_mesh)})
     for k in ("block_sort", "block_merge", "global_stage"):
         check(mesh_counts[k] > 0, f"kernel {k} was not launched on the model-D path")
+
+    # -- the engine: autotune, the batch service, the async queue, the frontend
+    for label, phase in (("autotune", phase_autotune), ("serve", phase_serve),
+                         ("queue", phase_queue), ("frontend", phase_frontend)):
+        print(smi, flush=True)
+        t0 = time.perf_counter()
+        emit({"phase": label, "nvidia_smi": smi, **phase(kernels, device, add),
+              "phase_seconds": time.perf_counter() - t0})
 
     # -- path times beside their library yardsticks
     paths = {

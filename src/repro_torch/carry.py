@@ -1,8 +1,10 @@
-"""Carrying the reference's state across: data and plans.
+"""Carrying the reference's state across: data, plans and the plan cache.
 
 The system has no weights; what crosses between ``repro`` (JAX) and
-``repro_torch`` is the data, as numpy arrays, and the sort plan, as the dict
-``SortPlan.to_dict()`` gives.  The dtype is kept exactly, bfloat16 included
+``repro_torch`` is the data, as numpy arrays, the sort plan, as the dict
+``SortPlan.to_dict()`` gives, and the plan-cache file (tuned plans and
+learned capacity factors), the state a serving process carries across
+restarts.  The dtype is kept exactly, bfloat16 included
 (numpy holds it as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses, so it travels as its 16-bit pattern).
 
@@ -12,16 +14,42 @@ than running on the CPU.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import replace
 
 import numpy as np
 import torch
 
-__all__ = ["as_tensor", "plan_from_reference", "tensor_from_reference", "tensor_to_reference"]
+__all__ = [
+    "as_tensor",
+    "check_device",
+    "plan_from_reference",
+    "planner_from_reference",
+    "tensor_from_reference",
+    "tensor_to_reference",
+]
 
 # local-sort names that differ between the packages: the reference's Pallas
 # kernel is the port's hand-written CUDA kernel
 _IMPL_NAMES = {"pallas": "kernel"}
+
+
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no card raises
+    rather than running on the CPU.  A bare ``"cuda"`` gets the current
+    card's index, so threads that enter it reach the same card.
+
+    >>> check_device("cpu")
+    device(type='cpu')
+    """
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def tensor_from_reference(a: np.ndarray, device="cuda") -> torch.Tensor:
@@ -31,9 +59,7 @@ def tensor_from_reference(a: np.ndarray, device="cuda") -> torch.Tensor:
     >>> t.dtype, t.tolist()
     (torch.float32, [1.5, -0.0])
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    device = check_device(device)
     a = np.require(a, requirements=["C", "W"])  # torch needs writable memory
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -78,3 +104,31 @@ def plan_from_reference(d: dict):
 
     plan = SortPlan.from_dict(d)
     return replace(plan, local_impl=_IMPL_NAMES.get(plan.local_impl, plan.local_impl))
+
+
+def planner_from_reference(doc_or_path, *, device=None):
+    """A reference plan-cache document (schema v1, v2 or v3; a dict or the
+    path of its JSON file) as the port's ``Planner``: plans mapped through
+    ``plan_from_reference`` (``'pallas'`` -> ``'kernel'``), the learned
+    capacity section unchanged.  ``device`` is the planner's device.
+
+    >>> doc = {"version": 3,
+    ...        "plans": {"4096|int32|local/cpu": {"strategy": "shared",
+    ...                                          "local_impl": "pallas", "block_n": 512}},
+    ...        "learned": {"1024|int32|cpu/x=4": {"capacity_factor": 3.75,
+    ...                                          "observations": 7}}}
+    >>> p = planner_from_reference(doc, device="cpu")
+    >>> p.plans["4096|int32|local/cpu"].local_impl, p.plans["4096|int32|local/cpu"].block_n
+    ('kernel', 512)
+    >>> p.learned["1024|int32|cpu/x=4"].capacity_factor
+    3.75
+    """
+    from repro_torch.engine.planner import Planner  # engine imports this module
+
+    if isinstance(doc_or_path, (str, os.PathLike)):
+        with open(doc_or_path) as f:
+            doc_or_path = json.load(f)
+    plans, learned = Planner._parse_doc(doc_or_path)
+    planner = Planner(device=device)
+    planner.plans, planner.learned = plans, learned
+    return planner

@@ -1,20 +1,19 @@
 """Public sort API (torch): ``sort(x)`` runs a sort plan.
 
 Counterpart of ``repro/core/api.py``.  Precedence: ``strategy=`` >
-``plan=`` > the default rule.  The reference's default rule first asks its
-planner for a tuned plan; with no plan-cache file that lookup returns
-nothing and the rule falls to model D (``"cluster"``) on a mesh and model B
-(``"shared_hybrid"``) on one device, which is the rule this port applies
-until the planner slice lands.  ``local_impl=`` / ``block_n=`` rewrite the
-chosen plan's local-sort fields (``local_impl='kernel'`` routes every local
-sort through the CUDA kernels).
+``plan=`` > the default planner's tuned plan for this (size, dtype, device)
+cell > the paper's rule: model D (``"cluster"``) on a mesh, model B
+(``"shared_hybrid"``) on one device.  ``local_impl=`` / ``block_n=``
+rewrite the chosen plan's local-sort fields (``local_impl='kernel'`` routes
+every local sort through the CUDA kernels).
 
 ``sort(x, mesh=group)`` runs on every rank of a process group (an
 ``AxisGroup`` or a ``ProcessGroup``), each with its shard ``x``, and
-returns that rank's ``(slab, valid)`` block, as ``cluster_sort`` does.  The
-reference's capacity learning through its planner is not ported yet: a
-mesh call runs at the plan's ``capacity_factor`` unless the caller passes
-one.
+returns that rank's ``(slab, valid)`` block, as ``cluster_sort`` does.
+Cluster runs close the capacity-learning loop through the default planner
+(learned ``capacity_factor`` + telemetry), keyed by the global length (the
+shard's times the group's size), unless ``capacity_factor=`` /
+``telemetry=`` — or a full ``plan=`` — are passed.
 """
 from __future__ import annotations
 
@@ -54,16 +53,43 @@ def sort(
     ...      local_impl="kernel", n_threads=2).tolist()
     [1, 2, 3]
     """
-    from repro_torch.engine.planner import plan_from_strategy, run_plan
+    from repro_torch.engine.planner import default_planner, plan_from_strategy, run_plan
+    from repro_torch.exchange import as_axis_group
 
     x = as_tensor(x, device)
+    # the plan key's length is the global one: on a mesh each rank holds a
+    # shard of the same length
+    n = x.shape[-1] if mesh is None else x.shape[-1] * as_axis_group(mesh).size
+    # an explicit plan= pins the full recipe, capacity_factor included, so it
+    # neither reads nor mutates the learned table (strategy= keeps the loop on)
+    pinned_plan = plan is not None and strategy is None
     if strategy is not None:
         plan = plan_from_strategy(strategy, n_threads=n_threads)
     elif plan is None:
-        plan = plan_from_strategy("cluster" if mesh is not None else "shared_hybrid",
-                                  n_threads=n_threads)
+        plan = default_planner().lookup(n, x.dtype, mesh, device=x.device)
+        # with mesh= the return contract is cluster_sort's (slab, valid): only
+        # an explicit strategy=/plan= may change it
+        if mesh is not None and (plan is None or plan.strategy != "cluster"):
+            plan = plan_from_strategy("cluster")
+        elif plan is None:
+            plan = plan_from_strategy("shared_hybrid", n_threads=n_threads)
     if local_impl is not None:
         plan = replace(plan, local_impl=local_impl)
     if block_n is not None:
         plan = replace(plan, block_n=block_n)
+    if (
+        plan.strategy == "cluster"
+        and mesh is not None
+        and not pinned_plan
+        and "capacity_factor" not in kwargs
+        and "telemetry" not in kwargs
+    ):
+        # close the loop: run at the learned factor and report this call's
+        # telemetry; mode= is a hint that keeps a caller's mode authoritative
+        kwargs.update(
+            default_planner().cluster_kwargs(
+                n, x.dtype, mesh, default=plan.capacity_factor, mode=kwargs.get("mode"),
+                device=x.device,
+            )
+        )
     return run_plan(plan, x, mesh=mesh, axis=axis, ascending=ascending, **kwargs)

@@ -8,6 +8,11 @@ n/T * 2^r in one vectorized ``merge_adjacent`` call.
 
 Model A: local sort = non-recursive merge sort   (``local_impl='merge'``)
 Model B: local sort = the "quicksort" role       (``'xla'``/``'bitonic'``/``'kernel'``)
+
+torch has no ``searchsorted``, ``gather``, ``flip`` or ``where`` for uint16
+and uint32, which the merge tree and the plain network need: those keys are
+sorted as the kernels' order-preserving int32 image (``ops._to_kernel_keys``)
+and mapped back, bit for bit.
 """
 from __future__ import annotations
 
@@ -36,9 +41,18 @@ def shared_memory_sort(
 
     >>> shared_memory_sort(torch.tensor([5, 3, 9, 1, 7]), n_threads=2).tolist()
     [1, 3, 5, 7, 9]
+    >>> shared_memory_sort(torch.tensor([60000, 3, 9], dtype=torch.uint16),
+    ...                    n_threads=2, ascending=False).tolist()
+    [60000, 9, 3]
     """
     if n_threads & (n_threads - 1) or n_threads < 1:
         raise ValueError("n_threads must be a power of two (paper §3.2)")
+    if x.dtype in (torch.uint16, torch.uint32):
+        from repro_torch.kernels.bitonic_sort.ops import _from_kernel_keys, _to_kernel_keys
+
+        out = shared_memory_sort(_to_kernel_keys(x), n_threads=n_threads, local_impl=local_impl,
+                                 ascending=ascending, block_n=block_n)
+        return _from_kernel_keys(out, x.dtype)
     *lead, n = x.shape
     np2 = max(next_pow2(n), n_threads)
     if np2 != n:

@@ -14,10 +14,10 @@ gets back its valid prefix of the result, so the prefixes in rank order
 are the reference's dense result, and no rank gathers the whole array.
 Stability falls out of the slab layout: within a bucket, receive order is
 (sender rank, slot), which is arrival order, so a stable local argsort of
-the received slab is the global stable sort.  The reference's capacity
-learning (its ``Planner``) is not ported yet: a mesh call runs at
-``capacity_factor`` 2.0 with no telemetry unless the caller passes them;
-the results are the same.
+the received slab is the global stable sort.  The mesh path closes the
+capacity-learning loop by default: it runs at the default planner's learned
+``capacity_factor`` for this (global size, dtype, group) cell and reports
+its telemetry back (``capacity_factor=`` or ``telemetry=`` opt out).
 
 Tensors run where they live; numpy arrays and lists are placed on
 ``device`` (default ``"cuda"``, which raises when there is no card).
@@ -199,7 +199,9 @@ def sort_kv(
     ``axis`` is accepted for parity with the reference): 1-D keys, model-D
     exchange of whole records (``compress=True`` ships float payloads as
     int8, ``cluster_kw`` go to ``cluster_sort_kv``); every rank passes its
-    shard and gets back its valid prefix of the sorted records.
+    shard and gets back its valid prefix of the sorted records, at the
+    default planner's learned capacity unless ``capacity_factor=`` or
+    ``telemetry=`` is passed.
 
     >>> k, v = sort_kv(torch.tensor([3, 1, 2]), {"p": torch.tensor([0, 1, 2])})
     >>> v["p"].tolist()
@@ -223,6 +225,15 @@ def sort_kv(
         k, v = sort_kv(_rev_key(keys), values, mesh=mesh, axis=axis, compress=compress,
                        **cluster_kw)
         return _rev_key(k), v
+    if "capacity_factor" not in cluster_kw and "telemetry" not in cluster_kw:
+        # close the capacity-learning loop through the default planner, keyed
+        # by the global length; an explicit capacity_factor= or telemetry=
+        # opts out of the whole loop
+        from .planner import default_planner
+
+        n = keys.shape[-1] * as_axis_group(mesh).size
+        cluster_kw.update(default_planner().cluster_kwargs(
+            n, keys.dtype, mesh, mode=cluster_kw.get("mode"), device=keys.device))
     slab_k, slab_v, valid = cluster_sort_kv(keys, values, mesh, axis, compress=compress,
                                             **cluster_kw)
     n_valid = int(valid.sum())  # valid is a prefix

@@ -165,6 +165,11 @@ if WORLD < 8:
     for name, (data, impl) in C_CASES.items():
         out[name + "/buf"] = distributed_merge_sort(X(data), G, local_impl=impl,
                                                     block_n=BLOCK_N).numpy()
+    # the mesh front doors above taught the default planner capacities; the
+    # reference's never ran them (its mesh kv path raises), so its sort
+    # dispatches from an empty learned table: start the port's alike
+    import repro_torch.engine.planner as planner_module
+    planner_module._DEFAULT = None
     for name, (data, port, _) in DISPATCH.items():
         if port == "sort":
             got = sort(X(data), mesh=G)[0]
