@@ -76,6 +76,41 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            every completed ticket against np.sort; p50/p95/p99 latency,
            SLO-met share, goodput, sheds by reason, the first request's
            latency beside the median
+  nan_merge  repro_torch.sort (local_impl xla, merge, kernel) and
+           engine.argsort (xla, kernel; both directions) of 1,000,003
+           float32 keys a quarter of which are NaN of either sign, +-inf or
+           +-0.0: no call raises or trips a device assert, and xla / merge
+           give the CPU path's bits
+  lm_serve the slice's main path: repro_torch.launch.serve.main decoding
+           qwen3-0.6b at full size (28 layers, bf16, random weights from
+           seed 0) for batch 8, prompt 128, 16 greedy tokens, on the direct
+           route, --topk-queue and --tenants web:3:0,batch:1:1 --slo-ms 40
+           --warmup, the service routes pinned to the reference's 'pallas'
+           plan (the port's kernel plan, block_n 1024) for the vocabulary's
+           cell by a plan file under build/ named in $REPRO_SORT_PLANS.
+           serve.sample_next is wrapped to read each step's logits, time
+           (host clock, ending in a synchronize), launches and batches.
+           Checks: the same tokens on every route; each batch the service
+           runs (and each cell it builds) launches A-kv 1, B-kv 8, C-kv 36;
+           each step's top-16 from the kernel route equals numpy's stable
+           argsort of -logits; prefill's and every decode step's logits
+           against one forward over the same tokens (bf16: relative L2 at
+           most 5 %, max abs at most 10 % of the largest logit); torch.profiler
+           over one prefill, one decode step and one top-k step
+  lm_moe   granite-moe-3b-a800m at full size (32 layers, 40 experts top-8,
+           bf16) through prefill_step and 7 serve_decode_steps, batch 8,
+           prompt 128, greedy, at loss-free capacity; logits against
+           forward (as above); moe_aux finite, moe_overflow at the config's
+           capacity factor 2.0 reported
+  moe_serve serve.main --moe (the first step retries, none after); then
+           moe_apply_adaptive at granite's MoE width (d_model 1536, d_ff
+           512, 40 experts, top-8, float32, 4,096 tokens, collapsed router)
+           through a plan file: call 1 retries, calls 2-5 and a reloaded
+           planner's first call do not, every output within 1e-4 of a dense
+           evaluation of the same top-k experts; moe_apply_local_adaptive on
+           a one-rank NCCL group, plain and with the int8 wire (held against
+           the dense evaluation of the dequantized rows); the exchange's
+           token-row gathers at 6 KB rows, timed
 
 The mesh phases' lines carry the card's name and power limit as nvidia-smi
 gives them.  Then the kernels line (launches on every path, time per
@@ -121,6 +156,24 @@ QUEUE_THREADS, QUEUE_REQUESTS, QUEUE_N = 8, 32, 4096
 TENANTS = (("web", 3.0, 0, 40.0), ("batch", 1.0, 1, 200.0))  # name, weight, priority, slo_ms
 TRACE = dict(duration_s=5.0, rates={"web": 200.0, "batch": 50.0}, zipf_a=1.2, seed=11)
 OVERLOAD = 20  # the second replay's rate multiple
+NAN_N = 1_000_003  # nan_merge: keys holding NaN, +-inf and +-0.0
+# lm_serve: the slice's main path, qwen3-0.6b at full size, decoding
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TOPK = "qwen3-0.6b", 8, 128, 16, 16
+# lm_moe: granite's MoE stack at full width and depth, greedy decode
+MOE_ARCH, MOE_GEN = "granite-moe-3b-a800m", 8
+MOE_TOKENS = 4096  # moe_serve: tokens a moe_apply_adaptive call at granite's width
+MOE_WIDTH = dict(d_model=1536, d_ff=512, n_experts=40, top_k=8)  # granite's MoE layer
+MOE_ATOL = 1e-4  # the reference MoE tests' atol = rtol (tests/test_moe.py)
+# bf16 logits of the serving path against forward's over the same tokens.
+# The reference's serving-test tolerances (atol 2e-3 / 5e-3, rtol 1e-3) are
+# for float32 configs; in bf16 the two paths round activations at different
+# points (and may flip a near-tied expert), which moves logits by a few
+# per cent of their scale, where a wrong computation on random weights is
+# uncorrelated with forward's (relative L2 ~ 1.4).
+LOGIT_REL_L2 = 0.05
+LOGIT_MAX_ABS_SHARE = 0.1
+LOGIT_TOLERANCE = {"rel_l2": LOGIT_REL_L2, "max_abs_share_of_max_logit": LOGIT_MAX_ABS_SHARE,
+                   "dtype": "bfloat16"}
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
     "block_sort": f"{PALLAS}:88",
@@ -817,6 +870,471 @@ def phase_frontend(kernels, device, add, trace_kw=TRACE, overload=OVERLOAD) -> d
             f"x{overload}": _load_summary(rep_hot, done_hot), "launches": counts}
 
 
+def _fresh_default_planner(plans_path):
+    """Point $REPRO_SORT_PLANS at ``plans_path`` (unset it for None) and drop
+    the process-wide planner, so the next ``default_planner()`` is built
+    from that file, as a new serving process's would be.  Returns the
+    previous state for ``_restore_default_planner``."""
+    import repro_torch.engine.planner as planner_mod
+
+    saved = (os.environ.get("REPRO_SORT_PLANS"), planner_mod._DEFAULT)
+    if plans_path is None:
+        os.environ.pop("REPRO_SORT_PLANS", None)
+    else:
+        os.environ["REPRO_SORT_PLANS"] = plans_path
+    planner_mod._DEFAULT = None
+    return saved
+
+
+def _restore_default_planner(saved) -> None:
+    import repro_torch.engine.planner as planner_mod
+
+    env, planner = saved
+    if env is None:
+        os.environ.pop("REPRO_SORT_PLANS", None)
+    else:
+        os.environ["REPRO_SORT_PLANS"] = env
+    planner_mod._DEFAULT = planner
+
+
+def nan_keys(n: int, gen, device) -> torch.Tensor:
+    """float32 keys with NaN of both signs, +-inf and +-0.0 in a quarter of
+    the slots, ties among the rest."""
+    x = torch.round(torch.randn(n, generator=gen, device=device) * 4)
+    special = torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf"), 0.0, -0.0],
+                           device=device)
+    at = torch.rand(n, generator=gen, device=device) < 0.25
+    pick = torch.randint(0, 6, (n,), generator=gen, device=device)
+    return torch.where(at, special[pick], x)
+
+
+def phase_nan_merge(kernels, device, add, n=NAN_N) -> dict:
+    """Model B and the stable argsort over NaN-holding keys on the card:
+    no call raises or trips a device assert; 'xla' and 'merge' give the
+    CPU path's bits (the values the CPU parity test holds against the
+    reference)."""
+    import repro_torch
+    from repro_torch import engine
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = nan_keys(n, gen, device)
+    x_cpu = x.cpu()
+    out = {}
+    for impl in ("xla", "merge", "kernel"):
+        got, counts = counted(kernels, lambda: repro_torch.sort(x, strategy="shared",
+                                                                local_impl=impl, n_threads=8))
+        add(counts)
+        check(got.shape == x.shape, f"nan_merge sort {impl}: shape")
+        entry = {"launches": counts}
+        if impl != "kernel":
+            want = repro_torch.sort(x_cpu, strategy="shared", local_impl=impl, n_threads=8)
+            check(same_bits(got.cpu(), want), f"nan_merge sort {impl}: differs from the CPU path")
+            entry["bitwise_equal_cpu"] = True
+        entry["nan_out"] = int(torch.isnan(got).sum())
+        out[f"sort_{impl}"] = entry
+    for impl in ("xla", "kernel"):
+        for asc in (True, False):
+            idx, counts = counted(kernels, lambda: engine.argsort(x, ascending=asc, impl=impl))
+            add(counts)
+            check(idx.shape == x.shape and idx.dtype == torch.int32, f"nan_merge argsort {impl}")
+            if impl == "xla":
+                want = engine.argsort(x_cpu, ascending=asc, impl="xla")
+                check(torch.equal(idx.cpu(), want), "nan_merge argsort xla: differs from the CPU path")
+            out[f"argsort_{impl}_{'asc' if asc else 'desc'}"] = {"launches": counts}
+    return {"n": n, "dtype": "float32", "nan_in": int(torch.isnan(x).sum()), "results": out,
+            "no_device_assert": True}
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def _logits_check(label, got, want) -> dict:
+    """bf16 logits of the serving path against ``forward``'s (module doc)."""
+    rel = _rel_l2(got, want)
+    err = max_abs_err(got, want)
+    bound = LOGIT_MAX_ABS_SHARE * float(want.abs().max())
+    check(rel <= LOGIT_REL_L2 and err <= bound,
+          f"{label}: logits off forward's (rel L2 {rel:.4g}, max abs {err:.4g} > {bound:.4g}?)")
+    return {"rel_l2": rel, "max_abs_err": err, "max_abs_bound": bound,
+            "argmax_agreement": float((got.argmax(-1) == want.argmax(-1)).float().mean())}
+
+
+def _parse_driver(out: str) -> dict:
+    import re
+
+    m = re.search(r"prefill ([\d.]+) ms; decode ([\d.]+) ms/tok", out)
+    return {"prefill_ms": float(m.group(1)), "decode_ms_per_token": float(m.group(2))}
+
+
+def _traced_sample_next(real, steps: list, kernels):
+    """``serve.sample_next`` that records each step's logits, token ids,
+    host-clock milliseconds (ending in a synchronize), kernel launches, the
+    service's batches, and on a service route the kernel argsort's order."""
+
+    def traced(logits, gen, **kw):
+        target = kw.get("frontend") or kw.get("queue")
+        futs = []
+        if target is not None:
+            name = "submit" if kw.get("frontend") is not None else "submit_async"
+            submit = getattr(target, name)
+
+            def recording(*a, **k):
+                fut = submit(*a, **k)
+                futs.append(fut)
+                return fut
+
+            setattr(target, name, recording)
+            batches0, built0 = target.stats.batches, target.stats.compiles
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        try:
+            tok = real(logits, gen, **kw)
+            torch.cuda.synchronize()
+        finally:
+            if target is not None:
+                delattr(target, name)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = kernels.launch_counts()
+        steps.append({
+            "logits": logits.float().clone(), "tokens": tok.clone(), "ms": ms,
+            "launches": {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)},
+            "batches": None if target is None else target.stats.batches - batches0,
+            # a cell's first use runs it once on zeros before the batch
+            "cells_built": None if target is None else target.stats.compiles - built0,
+            "orders": None if target is None else [np.asarray(f.result()) for f in futs],
+        })
+        return tok
+
+    return traced
+
+
+def _lm_profiles(params, cfg, prompts, gen_ids, logits, sample_next, device) -> dict:
+    """torch.profiler over one prefill, one decode step and one top-k step
+    through an AsyncSortService on the default planner's plans: device
+    time, the call's host-clock time, the idle share between them."""
+    from repro_torch.engine import AsyncSortService
+    from repro_torch.train.steps import prefill_step, serve_decode_step
+
+    prompts_t = torch.from_numpy(prompts.astype(np.int32)).to(device)
+    with torch.no_grad():
+        _, cache = prefill_step(params, cfg, prompts_t, cache_len=LM_PROMPT + LM_GEN)
+        nxt = torch.from_numpy(gen_ids[:, :1]).to(device)
+        profs = {"prefill": device_profile(
+                     lambda: prefill_step(params, cfg, prompts_t, cache_len=LM_PROMPT + LM_GEN)),
+                 "decode_step": device_profile(lambda: serve_decode_step(params, cfg, nxt, cache))}
+    queue = AsyncSortService(max_batch=LM_BATCH, max_delay_ms=2.0, device=device)
+    try:
+        gen = torch.Generator(device=device).manual_seed(0)
+        profs["topk_step_queue"] = device_profile(
+            lambda: sample_next(logits, gen, temperature=0, top_k=LM_TOPK, queue=queue))
+    finally:
+        queue.close()
+    for prof in profs.values():
+        prof["device_idle_share"] = 1.0 - prof["device_ms"] / prof["wall_ms"]
+    return profs
+
+
+def phase_lm_serve(kernels, device, add) -> dict:
+    """serve.main on qwen3-0.6b at full size on the three top-k routes; the
+    service routes on kernel plans through $REPRO_SORT_PLANS."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.engine.planner import plan_key
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import forward, model_init
+
+    cfg = ARCHS[LM_ARCH]
+    path = os.path.join(ROOT, "build", "lm_serve", "plans.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    bucket = 1 << (cfg.vocab_size - 1).bit_length()
+    with open(path, "w") as f:  # the reference's 'pallas' plan for the vocab cell
+        json.dump({"version": 3, "plans": {plan_key(bucket, torch.float32, device=device): {
+            "strategy": "shared", "local_impl": "pallas", "block_n": 1024}}}, f)
+    per_batch = expected_launches(cfg.vocab_size, 1024, kv=True)
+    flags = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+             "--gen", str(LM_GEN), "--temperature", "0"]
+    routes = {"direct": [], "queue": ["--topk-queue", "--stats"],
+              "tenants": ["--tenants", "web:3:0,batch:1:1", "--slo-ms", "40", "--warmup",
+                          "--stats"]}
+    saved = _fresh_default_planner(path)
+    real = serve.sample_next
+    torch.cuda.reset_peak_memory_stats()
+    report, tokens, first_steps = {}, {}, None
+    try:
+        for route, extra in routes.items():
+            steps = []
+            serve.sample_next = _traced_sample_next(real, steps, kernels)
+            buf = io.StringIO()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                gen_ids = serve.main(flags + extra)
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            add(counts)
+            serve.sample_next = real
+            out = buf.getvalue()
+            print(out, file=sys.stderr, flush=True)
+            check(gen_ids.shape == (LM_BATCH, LM_GEN) and gen_ids.max() < cfg.vocab_size
+                  and gen_ids.min() >= 0, f"lm_serve {route}: token ids")
+            tokens[route] = gen_ids
+            entry = {"seconds": seconds, **_parse_driver(out), "driver_output": out.splitlines(),
+                     "topk_ms_per_step": [s["ms"] for s in steps], "launches": counts}
+            if route != "direct":
+                for i, s in enumerate(steps):
+                    calls = s["batches"] + s["cells_built"]
+                    check(s["batches"] >= 1 and s["launches"] == {
+                        k: v * calls for k, v in per_batch.items()},
+                        f"lm_serve {route} step {i}: {s['launches']} for {s['batches']} batches "
+                        f"and {s['cells_built']} cells built")
+                    for row, order in zip(s["logits"].cpu().numpy(), s["orders"]):
+                        want = np.argsort(-row, kind="stable")[:LM_TOPK]
+                        check(np.array_equal(order[:LM_TOPK], want),
+                              f"lm_serve {route} step {i}: top-{LM_TOPK} differs from numpy")
+                entry["batches_per_step"] = [s["batches"] for s in steps]
+                entry["cells_built_per_step"] = [s["cells_built"] for s in steps]
+                entry["launches_per_step"] = [s["launches"] for s in steps]
+                check(all(counts.get(k, 0) > 0 for k in per_batch),
+                      f"lm_serve {route}: a kv kernel was not launched")
+            else:
+                first_steps = steps
+            report[route] = entry
+        for route in ("queue", "tenants"):
+            check(np.array_equal(tokens[route], tokens["direct"]),
+                  f"lm_serve: greedy tokens of {route} differ from direct")
+        # prefill's and every decode step's logits against one forward over
+        # the prompt and the tokens the steps fed back
+        params = model_init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))
+        seq = np.concatenate([prompts, tokens["direct"][:, :-1]], axis=1).astype(np.int32)
+        with torch.no_grad():
+            full, _ = forward(params, cfg, torch.from_numpy(seq).to(device))
+        checks = [_logits_check(f"lm_serve step {i}", s["logits"], full[:, LM_PROMPT - 1 + i])
+                  for i, s in enumerate(first_steps)]
+        del full
+        profiles = _lm_profiles(params, cfg, prompts, tokens["direct"], first_steps[-1]["logits"],
+                                real, device)
+        del params
+    finally:
+        serve.sample_next = real
+        _restore_default_planner(saved)
+    torch.cuda.empty_cache()
+    return {"arch": LM_ARCH, "params": cfg.param_count(), "dtype": "bfloat16",
+            "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN, "top_k": LM_TOPK,
+            "plan_file": os.path.relpath(path, ROOT), "expected_launches_per_batch": per_batch,
+            "routes": report, "greedy_tokens_equal": True, "topk_equal_numpy": True,
+            "logits_vs_forward": {"tolerance": LOGIT_TOLERANCE, "steps": checks},
+            "profiles": profiles,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "first_row_tokens": tokens["direct"][0].tolist()}
+
+
+def phase_lm_moe(device) -> dict:
+    """granite-moe-3b-a800m through prefill_step and serve_decode_step,
+    greedy, every layer's FFN through moe_apply_ep_replicated; logits
+    against forward."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.models.transformer import forward, model_init
+    from repro_torch.train.steps import prefill_step, serve_decode_step
+
+    base = ARCHS[MOE_ARCH]
+    # loss-free capacity (T * top_k slots) so an 8-token decode batch drops
+    # nothing and its logits are comparable with forward's
+    cfg = replace(base, capacity_factor=float(base.n_experts))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, cfg, prompts, cache_len=LM_PROMPT + MOE_GEN)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_logits, toks = [logits], [logits.argmax(-1).to(torch.int32)]
+        t0 = time.perf_counter()
+        for _ in range(MOE_GEN - 1):
+            lg, cache = serve_decode_step(params, cfg, toks[-1][:, None], cache)
+            step_logits.append(lg[:, 0])
+            toks.append(lg[:, 0].argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / max(MOE_GEN - 1, 1)
+        seq = torch.cat([prompts, torch.stack(toks[:-1], 1)], dim=1)
+        decode_prof = device_profile(lambda: serve_decode_step(params, cfg, toks[-1][:, None], cache))
+        decode_prof["device_idle_share"] = 1.0 - decode_prof["device_ms"] / decode_prof["wall_ms"]
+        full, stats = forward(params, cfg, seq)
+        _, stats_cf2 = forward(params, base, seq)  # the config's own capacity factor
+    checks = [_logits_check(f"lm_moe step {i}", lg, full[:, LM_PROMPT - 1 + i])
+              for i, lg in enumerate(step_logits)]
+    for name, st in (("loss-free", stats), ("cf 2.0", stats_cf2)):
+        check(bool(torch.isfinite(st["moe_aux"])), f"lm_moe: moe_aux not finite ({name})")
+    ids = torch.stack(toks, 1)
+    check(int(ids.max()) < cfg.vocab_size and int(ids.min()) >= 0, "lm_moe: token ids")
+    out = {"arch": MOE_ARCH, "n_layers": cfg.n_layers, "depth_cut": None,
+           "params": cfg.param_count(), "dtype": "bfloat16", "batch": LM_BATCH,
+           "prompt_len": LM_PROMPT, "decode_steps": MOE_GEN - 1,
+           "capacity_factor": cfg.capacity_factor, "init_s": init_s, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms, "decode_step_profile": decode_prof,
+           "logits_vs_forward": {"tolerance": LOGIT_TOLERANCE, "steps": checks},
+           "moe_aux": float(stats["moe_aux"]), "moe_overflow": bool(stats["moe_overflow"]),
+           "moe_aux_cf2": float(stats_cf2["moe_aux"]),
+           "moe_overflow_cf2": bool(stats_cf2["moe_overflow"]),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, cache, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dense_moe(p, cfg, x, x_ffn=None):
+    """Every token through each of its top-k experts, gate-weighted: the
+    plain evaluation the dispatch must equal.  ``x_ffn`` feeds the FFNs
+    (the int8 wire's dequantized rows) where routing reads ``x``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.moe import router_probs
+
+    _, idx, gate, _ = router_probs(p, cfg, x)
+    h_in = x if x_ffn is None else x_ffn
+    h = torch.einsum("td,edf->etf", h_in, p["w_in"])
+    h = F.silu(torch.einsum("td,edf->etf", h_in, p["w_gate"])) * h
+    y = torch.einsum("etf,efd->etd", h, p["w_out"])  # (E, T, D)
+    picked = y[idx.long(), torch.arange(x.shape[0], device=x.device)[:, None]]  # (T, k, D)
+    return torch.einsum("tkd,tk->td", picked, gate), idx
+
+
+def phase_moe_serve(device) -> dict:
+    """The --moe route of serve.main, then the capacity loop at granite's
+    MoE width on one device and on one NCCL rank."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.engine.planner import Planner
+    from repro_torch.exchange import AxisGroup
+    from repro_torch.exchange.collective import _dequantize_rows, _quantize_rows
+    from repro_torch.launch import serve
+    from repro_torch.models.moe import (
+        MoEConfig,
+        collapse_router,
+        moe_apply_adaptive,
+        moe_apply_local_adaptive,
+        moe_init,
+        moe_plan_key,
+    )
+
+    # (a) the driver's --moe route, as the reference runs it
+    saved = _fresh_default_planner(None)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--moe", "--batch", "8", "--prompt-len", "64", "--gen", "8",
+                        "--experts", "8", "--moe-skew", "6.0", "--stats"])
+    finally:
+        _restore_default_planner(saved)
+    text = buf.getvalue()
+    stats = dict(kv.split("=") for kv in re.search(r"moe-stats: (.*)", text).group(1).split())
+    first = int(re.search(r"\(retries=(\d+)\)", text).group(1))
+    check(first >= 1 and int(stats["retries"]) == first,
+          f"moe_serve --moe: retries {stats['retries']}, first step {first}")
+
+    # (b) moe_apply_adaptive at granite's MoE width, through a plan file
+    cfg = MoEConfig(**MOE_WIDTH)
+    gen = torch.Generator(device=device).manual_seed(3)
+    p = collapse_router(moe_init(gen, cfg, torch.float32, ep_shards=1, device=device))
+    x = torch.randn(MOE_TOKENS, cfg.d_model, generator=gen, device=device)
+    want, _ = _dense_moe(p, cfg, x)
+    path = os.path.join(ROOT, "build", "moe_serve", "plans.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    key = moe_plan_key(MOE_TOKENS, cfg, torch.float32, device=device)
+    planner = Planner(path, device=device)
+    calls = []
+    for call in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _, counts = moe_apply_adaptive(p, cfg, x, planner=planner)
+        torch.cuda.synchronize()
+        obs = planner.telemetry.last(key)
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "retries": obs.retries,
+                      "capacity": obs.capacity, "peak": obs.peak, "dropped": obs.dropped,
+                      "dropped_averted": obs.dropped_averted, "max_abs_err": max_abs_err(y, want)})
+        check(torch.allclose(y, want, atol=MOE_ATOL, rtol=MOE_ATOL),
+              f"moe_serve adaptive call {call}: off the dense evaluation")
+    check(calls[0]["retries"] >= 1 and all(c["retries"] == 0 for c in calls[1:]),
+          f"moe_serve adaptive: retries {[c['retries'] for c in calls]}")
+    learned = planner.capacity_factor_for(key, default=cfg.capacity_factor)
+    reloaded = Planner(path, device=device)
+    y, _, _ = moe_apply_adaptive(p, cfg, x, planner=reloaded)
+    check(reloaded.telemetry.last(key).retries == 0, "moe_serve: the reloaded planner retried")
+    check(torch.allclose(y, want, atol=MOE_ATOL, rtol=MOE_ATOL), "moe_serve reloaded: output")
+
+    # the exchange's token-row gathers at this width: dispatch (x repeated
+    # k times, in bucket order) and combine (slab rows back per assignment)
+    m = MOE_TOKENS * cfg.top_k
+    order = torch.randperm(m, generator=gen, device=device)
+    vals = torch.repeat_interleave(x, cfg.top_k, dim=0)
+    slab = torch.randn(cfg.n_experts * calls[-1]["capacity"], cfg.d_model, generator=gen,
+                       device=device)
+    back = torch.randint(0, slab.shape[0], (m,), generator=gen, device=device)
+    row_bytes = cfg.d_model * 4
+    gather = {}
+    for label, fn in (("dispatch_rows", lambda: vals[order]), ("combine_rows", lambda: slab[back])):
+        ms = time_ms(fn, reps=20)
+        gather[label] = {"rows": m, "row_bytes": row_bytes, "ms": ms,
+                         "gb_per_s": 2 * m * row_bytes / ms / 1e6,
+                         "bytes_bound_ms": 2 * m * row_bytes / HBM_BYTES_PER_S * 1e3}
+
+    # (c) moe_apply_local_adaptive on the one NCCL rank, plain and int8 wire
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    local = {}
+    try:
+        group = AxisGroup()
+        for compress in (False, True):
+            ccfg = cfg._replace(compress_dispatch=compress)
+            lplanner = Planner(device=device)
+            lkey = moe_plan_key(MOE_TOKENS, ccfg, torch.float32, group, device=device)
+            retries = []
+            for _ in range(3):
+                y, _, counts = moe_apply_local_adaptive(p, ccfg, x, group, planner=lplanner)
+                retries.append(lplanner.telemetry.last(lkey).retries)
+            if compress:
+                q, s = _quantize_rows(x)
+                ref_y, _ = _dense_moe(p, ccfg, x, _dequantize_rows(q, s, x.dtype))
+            else:
+                ref_y = want
+            err = max_abs_err(y, ref_y)
+            check(torch.allclose(y, ref_y, atol=MOE_ATOL, rtol=MOE_ATOL),
+                  f"moe_serve local compress={compress}: off the dense evaluation ({err})")
+            check(retries[0] >= 1 and retries[1:] == [0, 0], f"moe_serve local retries {retries}")
+            check(int(counts.sum()) == m, "moe_serve local: counts")
+            local["int8_wire" if compress else "plain_wire"] = {"retries": retries,
+                                                                "max_abs_err": err}
+    finally:
+        dist.destroy_process_group()
+    del p, x, want, vals, slab
+    torch.cuda.empty_cache()
+    return {"driver_moe": {"flags": "--moe --batch 8 --prompt-len 64 --gen 8 --experts 8 "
+                           "--moe-skew 6.0 --stats", "stats": stats, "first_step_retries": first,
+                           "output": text.splitlines()},
+            "adaptive": {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "experts": cfg.n_experts,
+                         "top_k": cfg.top_k, "tokens": MOE_TOKENS, "dtype": "float32",
+                         "router": "collapse_router", "tolerance": {"atol": MOE_ATOL, "rtol": MOE_ATOL},
+                         "calls": calls, "learned_factor": learned,
+                         "reloaded_first_call_retries": 0},
+            "local_one_nccl_rank": local, "token_row_gather": gather}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this script needs one card")
@@ -942,6 +1460,17 @@ def main() -> None:
         t0 = time.perf_counter()
         emit({"phase": label, "nvidia_smi": smi, **phase(kernels, device, add),
               "phase_seconds": time.perf_counter() - t0})
+
+    # -- NaN keys through model B and the argsort; then the LM serving path:
+    # qwen3-0.6b decoding with the kernel top-k, granite's MoE stack, the
+    # MoE capacity loop at width
+    for label, phase in (("nan_merge", lambda: phase_nan_merge(kernels, device, add)),
+                         ("lm_serve", lambda: phase_lm_serve(kernels, device, add)),
+                         ("lm_moe", lambda: phase_lm_moe(device)),
+                         ("moe_serve", lambda: phase_moe_serve(device))):
+        print(smi, flush=True)
+        t0 = time.perf_counter()
+        emit({"phase": label, "nvidia_smi": smi, **phase(), "phase_seconds": time.perf_counter() - t0})
 
     # -- path times beside their library yardsticks
     paths = {

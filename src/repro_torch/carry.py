@@ -1,8 +1,10 @@
-"""Carrying the reference's state across: data, plans and the plan cache.
+"""Carrying the reference's state across: data, weights, caches and plans.
 
-The system has no weights; what crosses between ``repro`` (JAX) and
-``repro_torch`` is the data, as numpy arrays, the sort plan, as the dict
-``SortPlan.to_dict()`` gives, and the plan-cache file (tuned plans and
+What crosses between ``repro`` (JAX) and ``repro_torch`` is the data, as
+numpy arrays; the model's parameter tree and its decode caches (the
+reference draws its random weights from ``jax.random``, which the port
+cannot repeat, so parity tests carry them over); the sort plan, as the dict
+``SortPlan.to_dict()`` gives; and the plan-cache file (tuned plans and
 learned capacity factors), the state a serving process carries across
 restarts.  The dtype is kept exactly, bfloat16 included
 (numpy holds it as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
@@ -23,7 +25,9 @@ import torch
 
 __all__ = [
     "as_tensor",
+    "cache_from_reference",
     "check_device",
+    "params_from_reference",
     "plan_from_reference",
     "planner_from_reference",
     "tensor_from_reference",
@@ -92,6 +96,35 @@ def as_tensor(x, device="cuda") -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     return tensor_from_reference(np.asarray(x), device)
+
+
+def params_from_reference(tree, device="cuda"):
+    """The reference's parameter tree (nested dicts of arrays: numpy, or
+    anything ``np.asarray`` reads) as the port's, the same keys and layout,
+    every leaf as ``tensor_from_reference`` places it.
+
+    >>> p = params_from_reference({"embed": {"table": np.ones((2, 3), np.float32)}}, "cpu")
+    >>> p["embed"]["table"].shape
+    torch.Size([2, 3])
+    """
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    return tensor_from_reference(np.asarray(tree), device)
+
+
+def cache_from_reference(cache: dict, device="cuda") -> dict:
+    """The reference's decode caches (``{"pos<i>": KVCache | MambaCache}``,
+    stacked over the group axis) as the port's namedtuples of tensors."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.mamba2 import MambaCache
+
+    out = {}
+    for name, c in cache.items():
+        kind = KVCache if c._fields == KVCache._fields else MambaCache
+        if c._fields != kind._fields:
+            raise TypeError(f"{name}: unknown cache fields {c._fields}")
+        out[name] = kind(*(tensor_from_reference(np.asarray(t), device) for t in c))
+    return out
 
 
 def plan_from_reference(d: dict):

@@ -7,6 +7,12 @@ left-run elements precede equal right-run elements — a *stable* merge),
 inverts that permutation with ``scatter_`` and gathers by it.  Plain torch:
 the reference, too, computes it outside any kernel.
 
+Float runs are searched on ``sort_image``, an order-preserving integer
+image in which -0.0 equals +0.0 and every NaN equals every other and sorts
+after ``+inf``: ``jnp.searchsorted``'s order, which ``torch.searchsorted``
+does not share for NaN.  So runs holding NaN merge as the reference's do,
+and the positions always form a permutation.
+
 ``merge_adjacent`` is one round of the paper's bottom-up merge: runs of width
 ``w`` become runs of width ``2w``.  ``values`` is a dict of tensors shaped
 like the keys.
@@ -15,13 +21,47 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rank_merge_pairs", "merge_adjacent", "merge_sorted_pair"]
+__all__ = ["rank_merge_pairs", "merge_adjacent", "merge_sorted_pair", "sort_image", "gather_bits"]
 
 
 def _invert_perm(perm: torch.Tensor) -> torch.Tensor:
-    """Invert a permutation given along the last axis."""
+    """Invert a permutation given along the last axis (zero-filled, as the
+    reference's ``jnp.zeros_like(p).at[p].set(i)``)."""
     iota = torch.arange(perm.shape[-1], dtype=perm.dtype, device=perm.device)
-    return torch.empty_like(perm).scatter_(-1, perm, iota.expand(perm.shape))
+    return torch.zeros_like(perm).scatter_(-1, perm, iota.expand(perm.shape))
+
+
+_SAME_SIZE_INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def gather_bits(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``torch.gather`` along the last axis that keeps every bit: floats move
+    as integers of their size (the CPU's vectorized bfloat16 gather rewrites
+    NaN payloads)."""
+    if x.dtype.is_floating_point:
+        iv = _SAME_SIZE_INT[x.element_size()]
+        return torch.gather(x.view(iv), -1, index).view(x.dtype)
+    return torch.gather(x, -1, index)
+
+
+def sort_image(x: torch.Tensor) -> torch.Tensor:
+    """Floats as integers in the order of ``jnp.sort`` and
+    ``jnp.searchsorted``: -0.0 == +0.0, and NaN (either sign) above
+    ``+inf``, all NaN equal.  Other dtypes as they are.  torch's library
+    sort on the card orders a negative NaN first; on this image it orders
+    as on the CPU and as the reference does.
+
+    >>> sort_image(torch.tensor([-1.0, -0.0, 0.0, float("inf"), float("nan")])).tolist()
+    [-1065353217, 0, 0, 2139095040, 2147483647]
+    """
+    if not x.dtype.is_floating_point:
+        return x
+    ft, it = (torch.float64, torch.int64) if x.dtype == torch.float64 else (torch.float32, torch.int32)
+    f = x.to(ft) + 0.0  # -0.0 -> +0.0
+    i = f.view(it)
+    mag = torch.iinfo(it).max
+    i = torch.where(i < 0, i ^ mag, i)  # sign-magnitude -> two's-complement order
+    return torch.where(torch.isnan(f), mag, i)
 
 
 def rank_merge_pairs(pairs: torch.Tensor, values: dict | None = None):
@@ -30,20 +70,18 @@ def rank_merge_pairs(pairs: torch.Tensor, values: dict | None = None):
     >>> rank_merge_pairs(torch.tensor([[1, 3], [2, 3]])).tolist()
     [1, 2, 3, 3]
     """
-    a = pairs[..., 0, :].contiguous()
-    b = pairs[..., 1, :].contiguous()
-    w = a.shape[-1]
+    *lead, _, w = pairs.shape
     iota = torch.arange(w, device=pairs.device)
-    pos_a = iota + torch.searchsorted(b, a, side="left")
-    pos_b = iota + torch.searchsorted(a, b, side="right")
+    ka = sort_image(pairs[..., 0, :]).contiguous()
+    kb = sort_image(pairs[..., 1, :]).contiguous()
+    pos_a = iota + torch.searchsorted(kb, ka, side="left")
+    pos_b = iota + torch.searchsorted(ka, kb, side="right")
     inv = _invert_perm(torch.cat([pos_a, pos_b], dim=-1))
-    out = torch.gather(torch.cat([a, b], dim=-1), -1, inv)
+    # (..., 2, w) read as (..., 2w) is the two runs concatenated
+    out = gather_bits(pairs.reshape(*lead, 2 * w), inv)
     if values is None:
         return out
-    merged = {}
-    for name, v in values.items():
-        merged[name] = torch.gather(torch.cat([v[..., 0, :], v[..., 1, :]], dim=-1), -1, inv)
-    return out, merged
+    return out, {name: gather_bits(v.reshape(*lead, 2 * w), inv) for name, v in values.items()}
 
 
 def merge_sorted_pair(a, b, va=None, vb=None):

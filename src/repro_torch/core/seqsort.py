@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .bitonic import bitonic_sort, next_pow2, sentinel_for
-from .merge import merge_adjacent
+from .merge import gather_bits, merge_adjacent, sort_image
 
 __all__ = [
     "recursive_merge_sort_host",
@@ -111,7 +111,9 @@ def fast_local_sort(
 
     impl='xla'     -> ``torch.sort(stable=True)`` (the platform's library
                       sort; stable, as ``jnp.sort`` is, so equal keys such
-                      as -0.0 and +0.0 keep their order bit for bit)
+                      as -0.0 and +0.0 keep their order bit for bit; floats
+                      sort on ``sort_image``, so NaN of either sign goes
+                      last on every device, as in ``jnp.sort``)
     impl='bitonic' -> the branch-free network, plain torch
     impl='kernel'  -> the same network as hand-written CUDA kernels
                       (``block_n`` is the shared-memory tile width)
@@ -124,7 +126,10 @@ def fast_local_sort(
     [3, 2, 1]
     """
     if impl == "xla":
-        out = torch.sort(x, dim=-1, stable=True).values
+        if x.dtype.is_floating_point:
+            out = gather_bits(x, torch.sort(sort_image(x), dim=-1, stable=True).indices)
+        else:
+            out = torch.sort(x, dim=-1, stable=True).values
         return out if ascending else torch.flip(out, dims=(-1,))
     if impl == "bitonic":
         return bitonic_sort(x, ascending=ascending)

@@ -31,6 +31,7 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.carry import as_tensor
 from repro_torch.core.cluster_sort import owned_count_and_peak
+from repro_torch.core.merge import sort_image
 from repro_torch.core.radix import make_partitioner
 from repro_torch.exchange import (
     AxisGroup,
@@ -80,7 +81,8 @@ def _order_keys(
         return kernel_argsort(k, block_n=block_n or DEFAULT_BLOCK_N)
     if impl != "xla":
         raise ValueError(f"argsort impl must be 'xla' or 'kernel', got {impl!r}")
-    return torch.sort(k, dim=-1, stable=True).indices.to(torch.int32)
+    # floats on their sort image: NaN of either sign last on every device
+    return torch.sort(sort_image(k), dim=-1, stable=True).indices.to(torch.int32)
 
 
 def _gather_last(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:

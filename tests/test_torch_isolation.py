@@ -26,7 +26,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "repro_torch.engine.adapt, repro_torch.engine.cache, repro_torch.engine.planner, "
         "repro_torch.engine.service, repro_torch.engine.queue, repro_torch.engine.frontend, "
         "repro_torch.engine.frontend.warmup, repro_torch.engine.frontend.scheduler, "
-        "repro_torch.engine.frontend.loadgen\n"
+        "repro_torch.engine.frontend.loadgen, repro_torch.models.layers, "
+        "repro_torch.models.moe, repro_torch.models.attention, repro_torch.models.mamba2, "
+        "repro_torch.models.transformer, repro_torch.configs.base, repro_torch.train.steps, "
+        "repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "print(bad)\n"
     )
@@ -76,3 +79,12 @@ def test_kernel_wrappers_refuse_other_devices():
 
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kernels.block_sort(torch.zeros(16, device="meta"), 4)
+
+
+def test_serving_driver_with_no_card_raises(monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for flags in (["--reduced", "--gen", "2"], ["--moe", "--gen", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(flags)
