@@ -111,6 +111,25 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            a one-rank NCCL group, plain and with the int8 wire (held against
            the dense evaluation of the dequantized rows); the exchange's
            token-row gathers at 6 KB rows, timed
+  lm_train the training path: repro_torch.launch.train.main on qwen3-0.6b
+           at full size (28 layers, bf16, f32 AdamW, random weights from
+           seed 0), batch 8, seq 512, 8 steps at lr 1e-3, train_step
+           wrapped to time each step (host clock, ending in a
+           synchronize): loss and grad norm finite every step, the last
+           loss below the first; tokens/s, peak memory, torch.profiler
+           over one more step.  One float32 train_step of a two-layer
+           full-width qwen3 on the card against the CPU's (TF32 off; loss
+           and grad norm within 1e-4, the update per leaf within 1e-3
+           relative L2).  The two-layer model in bf16 with checkpoints
+           every 2 steps under build/lm_train/, clean and with a
+           TrainingAnomaly injected at step 5: the replay's losses and
+           final checkpoint equal the clean run's bit for bit.  granite's
+           MoE width (4 of 32 layers, bf16, --moe-skew 6, --lr 0, which
+           keeps the collapsed router collapsed) with --plans: drops on
+           the first step only, the capacity rises once and holds; a
+           float32 step of the same model, then serve --moe on the plan
+           file starts at the learned factor (no retry on its first
+           call).  The phase launches no sort kernel (checked)
 
 The mesh phases' lines carry the card's name and power limit as nvidia-smi
 gives them.  Then the kernels line (launches on every path, time per
@@ -123,9 +142,13 @@ averaged over the repetitions the lines name; the mesh phases' calls read
 results on the host, so they are timed by the host clock, each call ending
 in a synchronize.
 """
+import contextlib
 import datetime
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -174,6 +197,18 @@ LOGIT_REL_L2 = 0.05
 LOGIT_MAX_ABS_SHARE = 0.1
 LOGIT_TOLERANCE = {"rel_l2": LOGIT_REL_L2, "max_abs_share_of_max_logit": LOGIT_MAX_ABS_SHARE,
                    "dtype": "bfloat16"}
+# lm_train: qwen3-0.6b at full size through the training driver
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 8, "1e-3"
+# the card's train_step against the CPU's: a float32 qwen3 at full width, two
+# layers; loss and grad_norm within 1e-4 relative, the update per leaf within
+# 1e-3 relative L2 (the CPU tests' tolerances against the reference)
+CHECK_LAYERS, CHECK_BATCH, CHECK_SEQ = 2, 2, 64
+CHECK_RTOL, CHECK_UPDATE_RL2 = 1e-4, 1e-3
+# recovery: the two-layer full-width qwen3 in bf16, checkpoints every 2
+# steps, a TrainingAnomaly injected at step 5
+RECOVERY_BATCH, RECOVERY_SEQ, RECOVERY_STEPS, RECOVERY_EVERY, RECOVERY_FAIL = 8, 128, 6, 2, 5
+# MoE: granite's width, 4 of its 32 layers, bf16, a collapsed router
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_SKEW = 4, 4, "6.0"
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
     "block_sort": f"{PALLAS}:88",
@@ -1335,6 +1370,265 @@ def phase_moe_serve(device) -> dict:
             "local_one_nccl_rank": local, "token_row_gather": gather}
 
 
+def _timed_train_step(real, log: list, last: dict):
+    """``train.train_step`` that records each step's host-clock ms (ending in
+    a synchronize), loss and grad_norm, and keeps the last step's outputs
+    and arguments for a profile."""
+
+    def timed(params, opt, batch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_params, new_opt, m = real(params, opt, batch, **kw)
+        torch.cuda.synchronize()
+        log.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])})
+        last.update(params=new_params, opt=new_opt, batch=batch, kw=kw)
+        return new_params, new_opt, m
+
+    return timed
+
+
+def _run_train(train, flags: list, wrap=None):
+    """``train.main(flags)`` with stdout captured and ``train.train_step``
+    wrapped by ``wrap``; returns (losses, output)."""
+    real = train.train_step
+    buf = io.StringIO()
+    try:
+        if wrap is not None:
+            train.train_step = wrap(real)
+        with contextlib.redirect_stdout(buf):
+            losses = train.main(flags)
+    finally:
+        train.train_step = real
+    print(buf.getvalue(), file=sys.stderr, flush=True)
+    return losses, buf.getvalue()
+
+
+def _train_step_against_cpu(device) -> dict:
+    """One train_step of a float32 full-width two-layer qwen3 on the card
+    and on the CPU, from the same params and batch, TF32 off."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import model_init
+    from repro_torch.optim.adamw import OptConfig, init_opt_state
+    from repro_torch.train.steps import train_step
+    from repro_torch.tree import at_path, map_leaves, paths
+
+    cfg = replace(ARCHS[LM_ARCH], name=f"{LM_ARCH}-{CHECK_LAYERS}l-f32", n_layers=CHECK_LAYERS,
+                  param_dtype=torch.float32, compute_dtype=torch.float32)
+    ocfg = OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    params = model_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    b = SyntheticLM(cfg.vocab_size, CHECK_BATCH, CHECK_SEQ, seed=0)._batch_at(0)
+    kw = dict(cfg=cfg, opt_cfg=ocfg, loss_chunk=min(64, CHECK_SEQ))
+    out = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in (torch.device("cpu"), device):
+            p = map_leaves(lambda t: t.to(dev), params)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            t0 = time.perf_counter()
+            new, _, m = train_step(p, init_opt_state(p, ocfg), batch, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out.append((map_leaves(lambda t: t.cpu(), new), {k: float(v) for k, v in m.items()},
+                        (time.perf_counter() - t0) * 1e3))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cpu_new, cpu_m, cpu_ms), (gpu_new, gpu_m, gpu_ms) = out
+    rel = {k: abs(gpu_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm", "lr")}
+    check(all(r <= CHECK_RTOL for r in rel.values()), f"lm_train card vs CPU: metrics {rel}")
+    worst = max(_rel_l2(at_path(gpu_new, path).double() - old.double(),
+                        at_path(cpu_new, path).double() - old.double())
+                for path, old in paths(params))
+    check(worst <= CHECK_UPDATE_RL2, f"lm_train card vs CPU: update rel L2 {worst}")
+    return {"arch": cfg.name, "dtype": "float32", "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "n_layers": CHECK_LAYERS, "batch": CHECK_BATCH, "seq": CHECK_SEQ, "tf32": False,
+            "tolerance": {"metrics_rel": CHECK_RTOL, "update_rel_l2": CHECK_UPDATE_RL2},
+            "metrics_rel_err": rel, "update_rel_l2_worst": worst, "loss": gpu_m["loss"],
+            "card_ms": gpu_ms, "cpu_ms": cpu_ms}
+
+
+def _recovery(train, arch: str, root: str) -> dict:
+    """The driver with checkpoints every RECOVERY_EVERY steps, clean and with
+    a TrainingAnomaly injected at step RECOVERY_FAIL: the replayed losses
+    and the final checkpoint equal the clean run's bit for bit."""
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.distributed.fault_tolerance import TrainingAnomaly
+
+    flags = ["--arch", arch, "--batch", str(RECOVERY_BATCH), "--seq", str(RECOVERY_SEQ),
+             "--steps", str(RECOVERY_STEPS), "--lr", TRAIN_LR, "--ckpt-every",
+             str(RECOVERY_EVERY), "--log-every", "1"]
+    runs = {}
+    for label in ("clean", "replayed"):
+        calls = []
+
+        def failing_once(real):
+            def step(*a, **k):
+                calls.append(len(calls))
+                if label == "replayed" and len(calls) == RECOVERY_FAIL + 1:
+                    raise TrainingAnomaly("injected by chip_smoke")
+                return real(*a, **k)
+            return step
+
+        ckpt = os.path.join(root, f"recovery_{label}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.perf_counter()
+        losses, out = _run_train(train, flags + ["--ckpt-dir", ckpt], failing_once)
+        runs[label] = {"losses": losses, "seconds": time.perf_counter() - t0,
+                       "restarts": int(re.search(r"\((\d+) restarts\)", out).group(1)),
+                       "calls": len(calls)}
+    clean, replayed = runs["clean"]["losses"], runs["replayed"]["losses"]
+    want = clean[:RECOVERY_FAIL] + clean[RECOVERY_FAIL - RECOVERY_FAIL % RECOVERY_EVERY:]
+    check(runs["replayed"]["restarts"] == 1, "lm_train recovery: restarts")
+    check(replayed == want, f"lm_train recovery: losses {replayed} against {want}")
+    final = f"step_{RECOVERY_STEPS:08d}"
+    ends = [np.load(os.path.join(root, f"recovery_{label}", final, "leaves.npz"))
+            for label in ("clean", "replayed")]
+    check(ends[0].files == ends[1].files, "lm_train recovery: leaf counts")
+    for k in ends[0].files:
+        a, b = ends[0][k], ends[1][k]
+        check(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+              f"lm_train recovery: leaf {k} differs")
+    for label in runs:
+        shutil.rmtree(os.path.join(root, f"recovery_{label}"), ignore_errors=True)
+    return {"arch": arch, "dtype": str(ARCHS[arch].param_dtype).removeprefix("torch."),
+            "batch": RECOVERY_BATCH, "seq": RECOVERY_SEQ,
+            "steps": RECOVERY_STEPS, "ckpt_every": RECOVERY_EVERY, "fail_at_step": RECOVERY_FAIL,
+            "restored_step": RECOVERY_FAIL - RECOVERY_FAIL % RECOVERY_EVERY,
+            "losses_clean": clean, "losses_replayed": replayed, "bitwise_equal": True,
+            "leaves": len(ends[0].files), "seconds": {k: v["seconds"] for k, v in runs.items()}}
+
+
+def _moe_train(train, serve, arch: str, arch_f32: str, root: str) -> dict:
+    """granite's MoE width through the driver with a collapsed router and
+    --lr 0 (which keeps the router collapsed): drops on the first step
+    only, the capacity rises once and holds; then serve --moe on the same
+    plan file starts at the learned factor (no retry on its first call)."""
+    from repro_torch.configs.base import ARCHS
+
+    plans = os.path.join(root, "plans.json")
+    if os.path.exists(plans):
+        os.remove(plans)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flags = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", "0",
+             "--moe-skew", MOE_TRAIN_SKEW, "--log-every", "1", "--plans", plans]
+    log, last = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    losses, out = _run_train(train, ["--arch", arch, "--steps", str(MOE_TRAIN_STEPS)] + flags,
+                             lambda real: _timed_train_step(real, log, last))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last.clear()
+    steps = [tuple(map(int, m)) for m in
+             re.findall(r"moe\[cap (\d+) drop (\d+) peak (\d+)\]", out)]
+    caps, drops = [c for c, _, _ in steps], [d for _, d, _ in steps]
+    check(len(steps) == MOE_TRAIN_STEPS and drops[0] > 0 and not any(drops[1:]),
+          f"lm_train moe: drops {drops}")
+    check(caps[0] < caps[1] and len(set(caps[1:])) == 1, f"lm_train moe: capacities {caps}")
+    check(all(np.isfinite(losses)), "lm_train moe: loss not finite")
+    bf16_cell = re.search(r"cell=(\S+)", out).group(1)
+    # the plan cell names the compute dtype and serve --moe's is float32, so
+    # the learned factor serving reads comes from a float32 step of the model
+    _, out32 = _run_train(train, ["--arch", arch_f32, "--steps", "1"] + flags)
+    f32_cell = re.search(r"cell=(\S+)", out32).group(1)
+    saved = _fresh_default_planner(plans)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--moe", "--batch", str(TRAIN_BATCH), "--prompt-len", str(TRAIN_SEQ),
+                        "--gen", "2", "--experts", str(MOE_WIDTH["n_experts"]), "--moe-top-k",
+                        str(MOE_WIDTH["top_k"]), "--moe-skew", MOE_TRAIN_SKEW, "--stats"])
+    finally:
+        _restore_default_planner(saved)
+    served = buf.getvalue()
+    first = int(re.search(r"\(retries=(\d+)\)", served).group(1))
+    check(first == 0, f"lm_train moe: serve --moe retried {first} times on its first call")
+    ms = [s["ms"] for s in log]
+    return {"arch": arch, "n_layers": MOE_TRAIN_LAYERS,
+            "dtype": str(ARCHS[arch].param_dtype).removeprefix("torch."), "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "tokens_per_step": tokens, "lr": 0.0, "moe_skew": float(MOE_TRAIN_SKEW),
+            "capacity_per_step": caps, "dropped_per_step": drops,
+            "peak_per_step": [p for _, _, p in steps], "cell": bf16_cell, "f32_cell": f32_cell,
+            "ms_per_step": ms, "steady_ms_per_step": float(np.mean(ms[1:])),
+            "peak_memory_gb": peak_gb, "serve_first_call_retries": first,
+            "serve_output": served.splitlines(), "plan_file": os.path.relpath(plans, ROOT)}
+
+
+def phase_lm_train(kernels, device) -> dict:
+    """The training path on the card: qwen3-0.6b at full size through
+    repro_torch.launch.train.main, one train_step against the CPU's, a
+    restart replayed bit for bit, and the MoE capacity loop at granite's
+    width warming serve --moe."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.launch import serve, train
+
+    root = os.path.join(ROOT, "build", "lm_train")
+    os.makedirs(root, exist_ok=True)
+    extra = {
+        f"{LM_ARCH}-{CHECK_LAYERS}l": replace(ARCHS[LM_ARCH], name=f"{LM_ARCH}-{CHECK_LAYERS}l",
+                                              n_layers=CHECK_LAYERS),
+        f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l": replace(ARCHS[MOE_ARCH],
+                                                   name=f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l",
+                                                   n_layers=MOE_TRAIN_LAYERS),
+    }
+    extra[f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l-f32"] = replace(
+        extra[f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l"], name=f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l-f32",
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+    ARCHS.update(extra)
+    kernels.reset_launch_counts()
+    try:
+        # (a) full size: qwen3-0.6b, 28 layers, bf16, f32 AdamW state
+        log, last = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, out = _run_train(
+            train, ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                    "--steps", str(TRAIN_STEPS), "--lr", TRAIN_LR, "--log-every", "1"],
+            lambda real: _timed_train_step(real, log, last))
+        seconds = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(len(log) == TRAIN_STEPS and all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+                                              for s in log), "lm_train: loss or grad_norm not finite")
+        check(losses[-1] < losses[0], f"lm_train: loss at step {TRAIN_STEPS} {losses[-1]} "
+                                      f"not below step 1's {losses[0]}")
+        ms = [s["ms"] for s in log]
+        steady = float(np.mean(ms[1:]))
+        prof = device_profile(lambda: train.train_step(last["params"], last["opt"], last["batch"],
+                                                       **last["kw"]))
+        prof["device_idle_share"] = 1.0 - prof["device_ms"] / prof["wall_ms"]
+        last.clear()
+        torch.cuda.empty_cache()
+        full = {"arch": LM_ARCH, "params": ARCHS[LM_ARCH].param_count(),
+                "dtype": str(ARCHS[LM_ARCH].param_dtype).removeprefix("torch."),
+                "opt_state": "f32", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+                "lr": float(TRAIN_LR), "losses": losses, "grad_norms": [s["grad_norm"] for s in log],
+                "ms_per_step": ms, "steady_ms_per_step": steady,
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+                "peak_memory_gb": peak_gb, "seconds": seconds, "step_profile": prof}
+
+        # (b) one step on the card against the same step on the CPU
+        against_cpu = _train_step_against_cpu(device)
+        torch.cuda.empty_cache()
+        # (c) a restart replayed bit for bit
+        recovery = _recovery(train, f"{LM_ARCH}-{CHECK_LAYERS}l", root)
+        torch.cuda.empty_cache()
+        # (d) the MoE capacity loop at granite's width, warming serve --moe
+        moe = _moe_train(train, serve, f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l",
+                         f"{MOE_ARCH}-{MOE_TRAIN_LAYERS}l-f32", root)
+        torch.cuda.empty_cache()
+    finally:
+        for name in extra:
+            ARCHS.pop(name, None)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(not launches, f"lm_train: the training path launched sort kernels {launches}")
+    return {"full_size": full, "card_vs_cpu": against_cpu, "recovery": recovery, "moe": moe,
+            "kernel_launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this script needs one card")
@@ -1463,11 +1757,12 @@ def main() -> None:
 
     # -- NaN keys through model B and the argsort; then the LM serving path:
     # qwen3-0.6b decoding with the kernel top-k, granite's MoE stack, the
-    # MoE capacity loop at width
+    # MoE capacity loop at width; then the training path
     for label, phase in (("nan_merge", lambda: phase_nan_merge(kernels, device, add)),
                          ("lm_serve", lambda: phase_lm_serve(kernels, device, add)),
                          ("lm_moe", lambda: phase_lm_moe(device)),
-                         ("moe_serve", lambda: phase_moe_serve(device))):
+                         ("moe_serve", lambda: phase_moe_serve(device)),
+                         ("lm_train", lambda: phase_lm_train(kernels, device))):
         print(smi, flush=True)
         t0 = time.perf_counter()
         emit({"phase": label, "nvidia_smi": smi, **phase(), "phase_seconds": time.perf_counter() - t0})

@@ -1,7 +1,8 @@
 """Carrying the reference's state across: data, weights, caches and plans.
 
 What crosses between ``repro`` (JAX) and ``repro_torch`` is the data, as
-numpy arrays; the model's parameter tree and its decode caches (the
+numpy arrays; the model's parameter tree, its optimizer state and its
+decode caches (the
 reference draws its random weights from ``jax.random``, which the port
 cannot repeat, so parity tests carry them over); the sort plan, as the dict
 ``SortPlan.to_dict()`` gives; and the plan-cache file (tuned plans and
@@ -27,6 +28,7 @@ __all__ = [
     "as_tensor",
     "cache_from_reference",
     "check_device",
+    "opt_state_from_reference",
     "params_from_reference",
     "plan_from_reference",
     "planner_from_reference",
@@ -110,6 +112,26 @@ def params_from_reference(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     return tensor_from_reference(np.asarray(tree), device)
+
+
+def opt_state_from_reference(state: dict, device="cuda") -> dict:
+    """The reference's AdamW state (``{"m", "v", "count"}`` and, under
+    ``compress_grads``, ``"err"``) as the port's: float32 moments, or int8
+    ``{"q", "scale"}`` moments, in the params' layout, every leaf as
+    ``tensor_from_reference`` places it.
+
+    >>> s = opt_state_from_reference({"m": {"w": {"q": np.zeros((2, 3), np.int8),
+    ...                                            "scale": np.ones(2, np.float32)}},
+    ...                               "v": {"w": {"q": np.zeros((2, 3), np.int8),
+    ...                                           "scale": np.ones(2, np.float32)}},
+    ...                               "count": np.int32(4)}, "cpu")
+    >>> s["m"]["w"]["q"].dtype, int(s["count"])
+    (torch.int8, 4)
+    """
+    unknown = set(state) - {"m", "v", "count", "err"}
+    if unknown or not {"m", "v", "count"} <= set(state):
+        raise ValueError(f"not an AdamW state: keys {sorted(state)}")
+    return params_from_reference(state, device)
 
 
 def cache_from_reference(cache: dict, device="cuda") -> dict:

@@ -1,1 +1,1 @@
-"""Drivers (torch): the serving driver; train, mesh and dry-run wait."""
+"""Drivers (torch): serving and single-device training; mesh and dry-run wait."""

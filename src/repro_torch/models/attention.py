@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.carry import check_device
+
 from .layers import Params, apply_rope, linear, linear_init, rmsnorm, rmsnorm_init, rope_angles
 
 __all__ = [
@@ -40,7 +42,8 @@ class AttnConfig(NamedTuple):
     kv_chunk: int = 1024           # online-softmax chunk (global layers)
 
 
-def attn_init(gen, cfg: AttnConfig, dtype, device="cpu") -> Params:
+def attn_init(gen, cfg: AttnConfig, dtype, device="cuda") -> Params:
+    device = check_device(device)
     H, Hk, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     p = {
         "wq": linear_init(gen, D, H * hd, dtype, bias=cfg.qkv_bias, device=device),
@@ -169,7 +172,8 @@ class KVCache(NamedTuple):
     length: torch.Tensor     # 0-d int32: tokens written so far
 
 
-def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int, dtype, device="cpu") -> KVCache:
+def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int, dtype, device="cuda") -> KVCache:
+    device = check_device(device)
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/models/layers.py``.  Every ``*_init`` draws from an
 explicit ``torch.Generator`` where the reference draws from ``jax.random``,
-and places its tensors on ``device``; the draws differ from the reference's,
+and places its tensors on ``device`` (default the card: with no card an
+init raises rather than running on the CPU); the draws differ from the reference's,
 so parity tests carry the reference's params across
 (``repro_torch.carry.params_from_reference``).
 """
@@ -12,6 +13,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.carry import check_device
 
 __all__ = [
     "Params",
@@ -40,8 +43,8 @@ def normal(gen: torch.Generator, shape, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- RMSNorm ---
-def rmsnorm_init(dim: int, dtype, device="cpu") -> Params:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def rmsnorm_init(dim: int, dtype, device="cuda") -> Params:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=check_device(device))}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -78,7 +81,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ----------------------------------------------------------------- Linear ---
-def linear_init(gen, d_in: int, d_out: int, dtype, *, bias: bool = False, device="cpu") -> Params:
+def linear_init(gen, d_in: int, d_out: int, dtype, *, bias: bool = False, device="cuda") -> Params:
+    device = check_device(device)
     scale = d_in ** -0.5
     p = {"w": (normal(gen, (d_in, d_out), device) * scale).to(dtype)}
     if bias:
@@ -99,7 +103,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_init(gen, d_model: int, d_ff: int, dtype, *, gated: bool = True, device="cpu") -> Params:
+def mlp_init(gen, d_model: int, d_ff: int, dtype, *, gated: bool = True, device="cuda") -> Params:
+    device = check_device(device)
     p = {
         "w_in": linear_init(gen, d_model, d_ff, dtype, device=device),
         "w_out": linear_init(gen, d_ff, d_model, dtype, device=device),
@@ -119,12 +124,15 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- Embedding ---
-def embed_init(gen, vocab: int, d_model: int, dtype, device="cpu") -> Params:
-    return {"table": normal(gen, (vocab, d_model), device).to(dtype)}
+def embed_init(gen, vocab: int, d_model: int, dtype, device="cuda") -> Params:
+    return {"table": normal(gen, (vocab, d_model), check_device(device)).to(dtype)}
 
 
 def embed(p: Params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return p["table"].to(compute_dtype)[tokens.long()]
+    """Rows of the table in ``compute_dtype``.  ``F.embedding``, whose
+    backward on the card sums the gradients of repeated tokens in a fixed
+    (sorted) order, so a training step repeats bit for bit."""
+    return F.embedding(tokens.long(), p["table"].to(compute_dtype))
 
 
 def unembed(p: Params, x: torch.Tensor, vocab_size: Optional[int] = None) -> torch.Tensor:

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.carry import check_device
+
 from .layers import Params, linear, linear_init, normal, rmsnorm, rmsnorm_init
 
 __all__ = [
@@ -55,7 +57,8 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def mamba_init(gen, cfg: MambaConfig, dtype, device="cpu") -> Params:
+def mamba_init(gen, cfg: MambaConfig, dtype, device="cuda") -> Params:
+    device = check_device(device)
     di, nh = cfg.d_inner, cfg.n_heads
     proj_out = 2 * di + 2 * cfg.n_groups * cfg.d_state + nh
     f32 = dict(dtype=torch.float32, device=device)
@@ -114,7 +117,9 @@ def _ssd_chunked(cfg: MambaConfig, x, dt, B_, C_, A, h0: Optional[torch.Tensor] 
     cum = torch.cumsum(ac, dim=2)                                # (B, nc, Q, nh)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B, nc, Q, Q, nh) i, j
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # mask before the exp: above the diagonal seg > 0 can overflow, and
+    # where(causal, exp(seg), 0) would then backpropagate 0 * inf = NaN
+    L = torch.exp(torch.where(causal[None, None, :, :, None], seg, float("-inf")))
 
     # intra-chunk: y[i] = sum_j (C_i . B_j) L[i, j] x[j]
     cb = torch.einsum("bnihd,bnjhd->bnijh", Cc, Bc)
@@ -143,7 +148,8 @@ class MambaCache(NamedTuple):
     ssm: torch.Tensor    # (B, nh, ds, hp) float32 state
 
 
-def init_mamba_cache(cfg: MambaConfig, batch: int, dtype, device="cpu") -> MambaCache:
+def init_mamba_cache(cfg: MambaConfig, batch: int, dtype, device="cuda") -> MambaCache:
+    device = check_device(device)
     return MambaCache(
         conv=torch.zeros((batch, cfg.conv_kernel - 1, cfg.conv_dim), dtype=dtype, device=device),
         ssm=torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.head_dim), dtype=torch.float32,

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.carry import check_device
 from repro_torch.core.bitonic import next_pow2
 from repro_torch.engine.kv import topk
 from repro_torch.engine.planner import default_planner, dtype_name, mesh_fingerprint
@@ -67,9 +68,10 @@ class MoEConfig(NamedTuple):
     compress_dispatch: bool = False   # int8 all_to_all payloads
 
 
-def moe_init(gen, cfg: MoEConfig, dtype, *, ep_shards: int, device="cpu") -> Params:
+def moe_init(gen, cfg: MoEConfig, dtype, *, ep_shards: int, device="cuda") -> Params:
     """Expert weights stacked (E_pad, ...); E padded to a multiple of
     ``ep_shards`` with dummy experts the router never selects."""
+    device = check_device(device)
     e_pad = math.ceil(cfg.n_experts / ep_shards) * ep_shards
     s_in = cfg.d_model ** -0.5
     s_out = cfg.d_ff ** -0.5

@@ -5,7 +5,8 @@ of block kinds (e.g. ``("attn_l",) * 5 + ("attn",)`` for gemma3,
 ``("attn",) + ("mamba",) * 7`` for jamba) and block params are stacked with
 a leading ``n_layers / len(pattern)`` group axis, the reference's layout, so
 carrying weights across is a tree map.  The stack is a Python loop over that
-axis: nothing here runs a backward, so there is no scan and no remat.
+axis; the training step (``repro_torch.train.steps``) runs its backward
+through the same blocks, with remat per group where the reference scans.
 
 Block kinds:
   attn    full causal attention (+ MoE or dense FFN)
@@ -16,7 +17,8 @@ Every block is pre-norm residual: x += Block(RMSNorm(x)); FFN likewise.
 ``ShardCtx`` names a process group for the model's mesh branches (the
 vocab-parallel embedding and the expert-parallel FFN).  Those branches are
 not ported yet: a ``ShardCtx`` with a group raises ``NotImplementedError``
-rather than running on one device.
+rather than running on one device.  ``model_init`` and ``init_cache`` place
+their tensors on ``device``, the card by default.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_map
+
+from repro_torch.carry import check_device
 
 from .attention import (
     AttnConfig,
@@ -179,7 +183,8 @@ class ShardCtx:
         """Raise for a mesh branch that is not ported yet."""
         if self.group is not None:
             raise NotImplementedError(
-                f"{what} on a process group is not ported yet (ROADMAP Queue 1 item 9b); "
+                f"{what} on a process group is not ported yet (ROADMAP Queue 1 item 9b, "
+                "the mesh branches of the model stack); "
                 "pass ShardCtx() to run on one device"
             )
 
@@ -224,10 +229,11 @@ def _stack(trees: list):
 
 
 def model_init(gen: torch.Generator, cfg: ModelConfig, *, ep_shards: int = 1,
-               device="cpu") -> Params:
-    """Random parameter tree from ``gen``; block params stacked over the
-    group axis.  The draws are not the reference's: parity tests carry its
-    params across instead."""
+               device="cuda") -> Params:
+    """Random parameter tree from ``gen`` on ``device``; block params
+    stacked over the group axis.  The draws are not the reference's: parity
+    tests carry its params across instead."""
+    device = check_device(device)
     groups = []
     for _ in range(cfg.n_groups):
         groups.append({
@@ -250,33 +256,48 @@ def group_params(blocks, g: int):
 
 
 # --------------------------------------------------------------- forward ---
-def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx, stats: dict):
+def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx, stats: dict, *,
+               moe_capacity: Optional[int] = None, moe_stats: bool = False):
     """Pre-norm FFN residual; an MoE FFN adds its aux loss and overflow flag
-    to ``stats``.  The expert-parallel branches under a group, and the
-    training step's capacity override and drop statistics, wait for the
-    training slice."""
+    to ``stats``.  ``moe_capacity`` overrides the per-(sender, expert) token
+    capacity (the train loop's capacity controller passes the learned
+    value); ``moe_stats=True`` adds ``moe_dropped`` (summed over layers) and
+    ``moe_peak`` (maxed over layers), what the between-step learner and
+    ``AnomalyMonitor`` read.  The expert-parallel branches under a group
+    wait for the mesh slice."""
     h = rmsnorm(p["norm2"], x)
     if "ffn" in p:
         return x + mlp(p["ffn"], h), stats
     ctx.single_device("the expert-parallel MoE FFN")
     B, S, D = h.shape
-    y, aux, overflow = moe_apply_ep_replicated(p["moe"], cfg.moe_cfg(), h.reshape(B * S, D))
+    res = moe_apply_ep_replicated(p["moe"], cfg.moe_cfg(), h.reshape(B * S, D),
+                                  capacity=moe_capacity, with_stats=moe_stats)
+    if moe_stats:
+        y, aux, dropped, _, peak, overflow = res
+    else:
+        y, aux, overflow = res
     stats = dict(stats)
     stats["moe_aux"] = stats.get("moe_aux", 0.0) + aux
     stats["moe_overflow"] = torch.logical_or(
         torch.as_tensor(stats.get("moe_overflow", False), device=overflow.device), overflow
     )
+    if moe_stats:
+        prev_peak = torch.as_tensor(stats.get("moe_peak", 0), dtype=peak.dtype, device=peak.device)
+        stats["moe_dropped"] = stats.get("moe_dropped", 0) + dropped
+        stats["moe_peak"] = torch.maximum(prev_peak, peak)
     return x + y.reshape(B, S, D), stats
 
 
-def _apply_block(p: Params, cfg: ModelConfig, kind: str, ffn, x, ctx, stats):
+def _apply_block(p: Params, cfg: ModelConfig, kind: str, ffn, x, ctx, stats, *,
+                 moe_capacity: Optional[int] = None, moe_stats: bool = False):
     h = rmsnorm(p["norm1"], x)
     if kind.startswith("attn"):
         x = x + attention_train(p["attn"], cfg.attn_cfg(kind), h)
     else:
         x = x + mamba_train(p["mamba"], cfg.mamba_cfg(), h)
     if ffn is not None:
-        x, stats = _apply_ffn(p, cfg, x, ctx, stats)
+        x, stats = _apply_ffn(p, cfg, x, ctx, stats, moe_capacity=moe_capacity,
+                              moe_stats=moe_stats)
     return x, stats
 
 
@@ -311,8 +332,10 @@ def forward(
 
 
 # ---------------------------------------------------------------- decode ---
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cpu"):
-    """Per-group stacked caches: each leaf has a leading ``n_groups`` axis."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """Per-group stacked caches on ``device``: each leaf has a leading
+    ``n_groups`` axis."""
+    device = check_device(device)
 
     def one(kind: str):
         if kind.startswith("attn"):

@@ -1,1 +1,1 @@
-"""Serving steps (torch): prefill and decode; the training steps wait for the training slice."""
+"""Step functions (torch): training, prefill and decode."""

@@ -29,7 +29,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "repro_torch.engine.frontend.loadgen, repro_torch.models.layers, "
         "repro_torch.models.moe, repro_torch.models.attention, repro_torch.models.mamba2, "
         "repro_torch.models.transformer, repro_torch.configs.base, repro_torch.train.steps, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.tree, repro_torch.optim.adamw, "
+        "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
+        "repro_torch.distributed.fault_tolerance, repro_torch.train.adaptive, "
+        "repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "print(bad)\n"
     )
@@ -42,7 +45,7 @@ def test_import_loads_no_jax_and_no_reference_module():
 
 def test_no_source_file_imports_jax_or_the_reference():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    assert len(sources) >= 34
+    assert len(sources) >= 45
     offenders = [p for p in sources if _FORBIDDEN_IMPORT.search(open(p).read())]
     assert offenders == []
 
@@ -88,3 +91,54 @@ def test_serving_driver_with_no_card_raises(monkeypatch):
     for flags in (["--reduced", "--gen", "2"], ["--moe", "--gen", "1"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(flags)
+
+
+def _inits():
+    from repro_torch.configs.base import ARCHS, reduced
+    from repro_torch.models import attention, layers, mamba2, moe, transformer
+
+    cfg = reduced(ARCHS["jamba-1.5-large-398b"])
+    gen = torch.Generator()
+    return {
+        "model_init": lambda: transformer.model_init(gen, cfg),
+        "init_cache": lambda: transformer.init_cache(cfg, 1, 4),
+        "moe_init": lambda: moe.moe_init(gen, cfg.moe_cfg(), torch.float32, ep_shards=1),
+        "attn_init": lambda: attention.attn_init(gen, cfg.attn_cfg("attn"), torch.float32),
+        "init_kv_cache": lambda: attention.init_kv_cache(cfg.attn_cfg("attn"), 1, 4, torch.float32),
+        "mamba_init": lambda: mamba2.mamba_init(gen, cfg.mamba_cfg(), torch.float32),
+        "init_mamba_cache": lambda: mamba2.init_mamba_cache(cfg.mamba_cfg(), 1, torch.float32),
+        "rmsnorm_init": lambda: layers.rmsnorm_init(4, torch.float32),
+        "linear_init": lambda: layers.linear_init(gen, 4, 4, torch.float32),
+        "mlp_init": lambda: layers.mlp_init(gen, 4, 8, torch.float32),
+        "embed_init": lambda: layers.embed_init(gen, 8, 4, torch.float32),
+    }
+
+
+_INIT_NAMES = ["model_init", "init_cache", "moe_init", "attn_init", "init_kv_cache", "mamba_init",
+               "init_mamba_cache", "rmsnorm_init", "linear_init", "mlp_init", "embed_init"]
+
+
+@pytest.mark.parametrize("name", _INIT_NAMES)
+def test_model_init_with_no_card_raises(name, monkeypatch):
+    """The model stack's inits default to the card: with none they raise
+    instead of returning CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _inits()[name]()
+
+
+def test_model_init_runs_on_the_cpu_when_asked():
+    from repro_torch.configs.base import ARCHS, reduced
+    from repro_torch.models import transformer
+
+    params = transformer.model_init(torch.Generator(), reduced(ARCHS["qwen3-0.6b"]), device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
+    assert set(_inits()) == set(_INIT_NAMES)
+
+
+def test_training_driver_with_no_card_raises(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])

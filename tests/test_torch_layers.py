@@ -110,11 +110,11 @@ def test_inits_have_the_reference_layout(dtype):
     gen = torch.Generator().manual_seed(0)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     pairs = [
-        (ref.rmsnorm_init(8, jd), layers.rmsnorm_init(8, td)),
-        (ref.linear_init(key, 8, 4, jd, bias=True), layers.linear_init(gen, 8, 4, td, bias=True)),
-        (ref.mlp_init(key, 8, 12, jd), layers.mlp_init(gen, 8, 12, td)),
-        (ref.mlp_init(key, 8, 12, jd, gated=False), layers.mlp_init(gen, 8, 12, td, gated=False)),
-        (ref.embed_init(key, 10, 8, jd), layers.embed_init(gen, 10, 8, td)),
+        (ref.rmsnorm_init(8, jd), layers.rmsnorm_init(8, td, "cpu")),
+        (ref.linear_init(key, 8, 4, jd, bias=True), layers.linear_init(gen, 8, 4, td, bias=True, device="cpu")),
+        (ref.mlp_init(key, 8, 12, jd), layers.mlp_init(gen, 8, 12, td, device="cpu")),
+        (ref.mlp_init(key, 8, 12, jd, gated=False), layers.mlp_init(gen, 8, 12, td, gated=False, device="cpu")),
+        (ref.embed_init(key, 10, 8, jd), layers.embed_init(gen, 10, 8, td, "cpu")),
     ]
 
     def layout(tree):
@@ -124,4 +124,4 @@ def test_inits_have_the_reference_layout(dtype):
 
     for want, got in pairs:
         assert layout(got) == layout(want)
-    assert torch.equal(layers.rmsnorm_init(8, td)["scale"], torch.ones(8, dtype=td))
+    assert torch.equal(layers.rmsnorm_init(8, td, "cpu")["scale"], torch.ones(8, dtype=td))

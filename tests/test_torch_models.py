@@ -82,7 +82,7 @@ def test_param_tree_layout_equals_the_reference():
         rcfg = ref_base.reduced(ref_base.ARCHS[arch])
         tcfg = base.reduced(base.ARCHS[arch])
         rp = ref_tf.model_init(jax.random.PRNGKey(0), rcfg, ep_shards=2)
-        tp = transformer.model_init(torch.Generator().manual_seed(0), tcfg, ep_shards=2)
+        tp = transformer.model_init(torch.Generator().manual_seed(0), tcfg, ep_shards=2, device="cpu")
         rl = jax.tree_util.tree_flatten_with_path(rp)[0]
         tl = {jax.tree_util.keystr(k): v for k, v in
               jax.tree_util.tree_flatten_with_path(tp)[0]}
@@ -136,7 +136,7 @@ def test_a_group_raises_rather_than_running_on_one_device():
     """Accepted difference: the mesh branches of the stack wait for the
     training slice, and a ShardCtx with a group says so."""
     cfg = base.reduced(base.ARCHS["granite-moe-3b-a800m"])
-    params = transformer.model_init(torch.Generator().manual_seed(0), cfg)
+    params = transformer.model_init(torch.Generator().manual_seed(0), cfg, device="cpu")
     ctx = transformer.ShardCtx(group=SimpleNamespace(size=2, rank=0))
     assert ctx.ep_shards == 2
     with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):

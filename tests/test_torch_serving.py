@@ -97,7 +97,7 @@ def test_decode_from_an_empty_cache_matches_forward():
     rcfg, tcfg = configs("dense")
     _, tp = carried(rcfg)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, 64, (2, 6)).astype(np.int32))
-    cache = transformer.init_cache(tcfg, 2, 16)
+    cache = transformer.init_cache(tcfg, 2, 16, device="cpu")
     outs = []
     for t in range(6):
         lg, new = transformer.decode_step(tp, tcfg, toks[:, t: t + 1], cache)
