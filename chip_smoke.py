@@ -130,6 +130,22 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            float32 step of the same model, then serve --moe on the plan
            file starts at the learned factor (no retry on its first
            call).  The phase launches no sort kernel (checked)
+  lm_mesh  train --mesh.  (a) One NCCL rank: lm_train's qwen3-0.6b run
+           (full size, bf16, batch 8, seq 512, lr 1e-3, seed 0) on a
+           (data=1, model=1) mesh for 6 steps: finite losses, step 1's
+           within 1e-2 relative of lm_train's step 1 (same params and
+           batch), ms a step beside lm_train's.  (b) Four spawned ranks
+           share the card over gloo (host-staged; FileStore under
+           build/lm_mesh/), (data=2, model=2): granite-moe-3b-a800m at full
+           width (d_model 1536, 40 experts top-8, vocabulary 49155), 4
+           layers, bf16, batch 8 x seq 512 (4,096 tokens), 3 steps: the
+           same finite losses on every rank, each rank's param and moment
+           bytes against the whole's, peak memory, MoE capacity / drops /
+           peak a step; a float32 check at 2 layers (loss without the aux
+           term and the global gradient norm at loss-free capacity, TF32
+           off) within 1e-5 relative of one rank's on the card, no drops;
+           a greedy decode of 4 tokens from a 64-token prompt on the mesh
+           equal to one rank's.  Launches no sort kernel (checked)
 
 The mesh phases' lines carry the card's name and power limit as nvidia-smi
 gives them.  Then the kernels line (launches on every path, time per
@@ -209,6 +225,20 @@ CHECK_RTOL, CHECK_UPDATE_RL2 = 1e-4, 1e-3
 RECOVERY_BATCH, RECOVERY_SEQ, RECOVERY_STEPS, RECOVERY_EVERY, RECOVERY_FAIL = 8, 128, 6, 2, 5
 # MoE: granite's width, 4 of its 32 layers, bf16, a collapsed router
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_SKEW = 4, 4, "6.0"
+# lm_mesh: train --mesh.  (a) One NCCL rank, (data=1, model=1), qwen3-0.6b at
+# full size (lm_train's model, batch, seq and lr): its step-1 loss against
+# lm_train's, which starts from the same params and batch, within a bf16
+# bound (the one-rank mesh runs the same ops; a wrong mesh path on random
+# weights moves the loss by whole units).  (b) Four ranks on the one card over
+# gloo (host-staged), (data=2, model=2): granite's full width (d_model 1536,
+# 40 experts top-8, vocabulary 49155), bf16, 4 layers, batch 8 x seq 512
+# (4,096 tokens a step); a float32 check at 2 layers against one rank on the
+# card (loss without the aux term, whose mean over senders one rank does not
+# repeat, and the global gradient norm within 1e-5 relative, at loss-free
+# capacity, TF32 off); a greedy decode of 4 tokens against one rank's
+MESH_ONE_STEPS, MESH_LOSS_RTOL = 6, 1e-2
+MESH_RANKS, MESH_SPEC, MESH_LAYERS, MESH_STEPS = 4, "data=2,model=2", 4, 3
+MESH_CHECK_LAYERS, MESH_CHECK_RTOL, MESH_PROMPT, MESH_DECODE = 2, 1e-5, 64, 4
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
     "block_sort": f"{PALLAS}:88",
@@ -1629,6 +1659,237 @@ def phase_lm_train(kernels, device) -> dict:
             "kernel_launches": launches}
 
 
+def _mesh_archs():
+    """granite at MESH_LAYERS layers in bf16 and at MESH_CHECK_LAYERS in
+    float32, registered in ARCHS (each spawned rank registers its own)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ARCHS
+
+    bf16 = f"{MOE_ARCH}-{MESH_LAYERS}l"
+    f32 = f"{MOE_ARCH}-{MESH_CHECK_LAYERS}l-f32"
+    ARCHS[bf16] = replace(ARCHS[MOE_ARCH], name=bf16, n_layers=MESH_LAYERS)
+    ARCHS[f32] = replace(ARCHS[MOE_ARCH], name=f32, n_layers=MESH_CHECK_LAYERS,
+                         param_dtype=torch.float32, compute_dtype=torch.float32)
+    return bf16, f32
+
+
+def _nbytes(*trees) -> int:
+    from repro_torch.tree import paths
+
+    return sum(t.numel() * t.element_size() for tree in trees for _, t in paths(tree))
+
+
+def _mesh_check(f32: str, batch_size: int, seq: int, device) -> dict:
+    """The float32 check on the (data=2, model=2) mesh and, on rank 0, on
+    one rank: loss without the aux term and the global gradient norm at
+    loss-free capacity, MoE drops; then a greedy decode of MESH_DECODE
+    tokens from a MESH_PROMPT-token prompt."""
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import (batch_specs, compute_specs, fit_tree,
+                                                  param_specs, shard_tree)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import ShardCtx, model_init
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.steps import loss_fn, prefill_step, serve_decode_step
+    from repro_torch.tree import from_paths, paths
+
+    cfg = ARCHS[f32]
+    mesh = Mesh((2, 2), ("data", "model"))
+    full = model_init(torch.Generator(device=device).manual_seed(0), cfg, ep_shards=2,
+                      device=device)
+    b = SyntheticLM(cfg.vocab_size, batch_size, seq, seed=0)._batch_at(0)
+    whole = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    def loss_and_norm(params, batch, ctx, specs, cap):
+        pairs = list(paths(params))
+        leaves = [t.detach().requires_grad_(True) for _, t in pairs]
+        loss, stats = loss_fn(from_paths((p, t) for (p, _), t in zip(pairs, leaves)), cfg, batch,
+                              ctx=ctx, aux_weight=0.0, loss_chunk=64, moe_capacity=cap,
+                              specs=specs)
+        grads = from_paths((p, g) for (p, _), g in
+                           zip(pairs, torch.autograd.grad(loss, leaves)))
+        gnorm = global_norm(grads, specs, ctx.mesh)
+        return {"loss": float(loss.detach()), "grad_norm": float(gnorm),
+                "moe_dropped": int(stats["moe_dropped"]), "moe_peak": int(stats["moe_peak"])}
+
+    def greedy(params, prompt, ctx):
+        with torch.no_grad():
+            last, cache = prefill_step(params, cfg, prompt, ctx=ctx,
+                                       cache_len=MESH_PROMPT + MESH_DECODE)
+            nxt, toks = torch.argmax(last, -1), []
+            for _ in range(MESH_DECODE):
+                toks.append(nxt)
+                logits, cache = serve_decode_step(params, cfg, nxt[:, None].int(), cache, ctx=ctx)
+                nxt = torch.argmax(logits[:, 0], -1)
+        return torch.stack(toks, 1).tolist()
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ctx = ShardCtx(mesh=mesh, axes=mesh.axis_names)
+        specs = fit_tree(param_specs(full), full, mesh)
+        # a sender's tokens fill at most that many slots of one expert: loss-free
+        report = {"mesh": loss_and_norm(shard_tree(full, specs, mesh),
+                                        shard_tree(whole, batch_specs(whole), mesh), ctx, specs,
+                                        batch_size * seq // mesh.size)}
+        compute = shard_tree(full, compute_specs(param_specs(full)), mesh)
+        rows = shard_tree(whole, batch_specs(whole), mesh)["tokens"][:, :MESH_PROMPT]
+        report["mesh_greedy"] = greedy(compute, rows.contiguous(), ctx)
+        del compute
+        if mesh.rank == 0:  # one rank: the same model, batch and prompt, no mesh
+            report["one_rank"] = loss_and_norm(full, whole, ShardCtx(), None, batch_size * seq)
+            report["one_rank_greedy"] = greedy(full, whole["tokens"][:, :MESH_PROMPT].contiguous(),
+                                               ShardCtx())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    report["coords"] = mesh.coords
+    return report
+
+
+def mesh_rank(rank: int, world: int, store: str, result: str, device_type: str = "cuda") -> None:
+    """One rank of phase lm_mesh's (data=2, model=2) run (a spawned process
+    on the one card, gloo): the driver at granite's width, then the float32
+    check and the greedy decode."""
+    from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+    from repro_torch.launch import train
+
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        bf16, f32 = _mesh_archs()
+        kernels.reset_launch_counts()
+        log, last = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, out = _run_train(
+            train, ["--arch", bf16, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                    "--steps", str(MESH_STEPS), "--lr", TRAIN_LR, "--log-every", "1",
+                    "--mesh", MESH_SPEC, "--dist-backend", "gloo", "--device", device_type],
+            lambda real: _timed_train_step(real, log, last))
+        report = {"rank": rank, "losses": losses, "seconds": time.perf_counter() - t0,
+                  "ms_per_step": [s["ms"] for s in log], "grad_norms": [s["grad_norm"] for s in log],
+                  "param_bytes": _nbytes(last["params"]),
+                  "moment_bytes": _nbytes(last["opt"]["m"], last["opt"]["v"]),
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "moe": [tuple(map(int, m)) for m in
+                          re.findall(r"moe\[cap (\d+) drop (\d+) peak (\d+)\]", out)],
+                  "params_m": float(re.search(r"params=([\d.]+)M", out).group(1))
+                  if rank == 0 else None}
+        last.clear()
+        torch.cuda.empty_cache()
+        report["check"] = _mesh_check(f32, TRAIN_BATCH, TRAIN_SEQ, torch.device(device_type))
+        report["kernel_launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+        with open(f"{result}.{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(fn, args, nprocs: int) -> None:
+    import torch.multiprocessing as mp
+
+    mp.start_processes(fn, args=args, nprocs=nprocs, join=True, start_method="spawn")
+
+
+def phase_lm_mesh(kernels, device, lm_train: dict) -> dict:
+    """train --mesh: one NCCL rank at qwen3-0.6b's full size, then four gloo
+    ranks sharing the card at granite's full width."""
+    from repro_torch.launch import train
+
+    kernels.reset_launch_counts()
+    # (a) one NCCL rank: lm_train's run on a (data=1, model=1) mesh
+    log, last = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    losses, out = _run_train(
+        train, ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(MESH_ONE_STEPS), "--lr", TRAIN_LR, "--log-every", "1",
+                "--mesh", "data=1,model=1", "--dist-backend", "nccl"],
+        lambda real: _timed_train_step(real, log, last))
+    last.clear()
+    check(not dist.is_initialized(), "lm_mesh: the driver left its NCCL group up")
+    check(all(np.isfinite(losses)), f"lm_mesh one rank: losses {losses}")
+    want = lm_train["full_size"]["losses"][0]
+    rel = abs(losses[0] - want) / abs(want)
+    check(rel <= MESH_LOSS_RTOL, f"lm_mesh one rank: step-1 loss {losses[0]} against lm_train's {want}")
+    ms = [s["ms"] for s in log]
+    one = {"arch": LM_ARCH, "mesh": "data=1,model=1", "backend": "nccl", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": MESH_ONE_STEPS, "losses": losses,
+           "step1_loss_rel_to_lm_train": rel, "tolerance": MESH_LOSS_RTOL, "ms_per_step": ms,
+           "steady_ms_per_step": float(np.mean(ms[1:])),
+           "lm_train_steady_ms_per_step": lm_train["full_size"]["steady_ms_per_step"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    torch.cuda.empty_cache()
+
+    # (b) four ranks on the one card over gloo, (data=2, model=2)
+    work = os.path.join(ROOT, "build", "lm_mesh")
+    os.makedirs(work, exist_ok=True)
+    store, result = os.path.join(work, f"store.{os.getpid()}"), os.path.join(work, "result")
+    for path in [store] + [f"{result}.{r}.json" for r in range(MESH_RANKS)]:
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    _spawn(mesh_rank, (MESH_RANKS, store, result), MESH_RANKS)
+    seconds = time.perf_counter() - t0
+    reports = []
+    for r in range(MESH_RANKS):
+        with open(f"{result}.{r}.json") as f:
+            reports.append(json.load(f))
+    r0 = reports[0]
+    check(all(rep["losses"] == r0["losses"] for rep in reports), "lm_mesh: the ranks' losses differ")
+    check(len(r0["losses"]) == MESH_STEPS and all(np.isfinite(r0["losses"] + r0["grad_norms"])),
+          f"lm_mesh: losses {r0['losses']}")
+    for rep in reports:
+        for k, v in rep["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check(not launches, f"lm_mesh: the mesh training path launched sort kernels {launches}")
+    # the float32 check: every rank's mesh numbers equal, and within
+    # MESH_CHECK_RTOL of one rank's
+    mesh_m, one_m = r0["check"]["mesh"], r0["check"]["one_rank"]
+    check(all(rep["check"]["mesh"] == mesh_m for rep in reports),
+          "lm_mesh check: the ranks' numbers differ")
+    rel_check = {k: abs(mesh_m[k] - one_m[k]) / abs(one_m[k]) for k in ("loss", "grad_norm")}
+    check(all(v <= MESH_CHECK_RTOL for v in rel_check.values()),
+          f"lm_mesh check: mesh {mesh_m} against one rank {one_m}")
+    check(mesh_m["moe_dropped"] == one_m["moe_dropped"] == 0, "lm_mesh check: tokens dropped")
+    greedy = [None] * 2
+    for rep in reports:  # the rows of each data coordinate, equal over its model group
+        d = rep["check"]["coords"]["data"]
+        check(greedy[d] in (None, rep["check"]["mesh_greedy"]),
+              "lm_mesh decode: a model group's ranks disagree")
+        greedy[d] = rep["check"]["mesh_greedy"]
+    check(greedy[0] + greedy[1] == r0["check"]["one_rank_greedy"],
+          f"lm_mesh decode: mesh {greedy} against one rank {r0['check']['one_rank_greedy']}")
+    n_params = r0["params_m"] * 1e6
+    whole_bytes = {"params": n_params * 2, "moments": n_params * 8}  # bf16 params, f32 m and v
+    return {
+        "one_nccl_rank": one,
+        "four_gloo_ranks": {
+            "arch": f"{MOE_ARCH} ({MESH_LAYERS} of 32 layers)", "mesh": MESH_SPEC,
+            "backend": "gloo (host-staged CUDA tensors; step times are not NCCL's)",
+            "dtype": "bfloat16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ, "steps": MESH_STEPS, "lr": float(TRAIN_LR),
+            "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+            "ms_per_step_rank0": r0["ms_per_step"], "seconds": seconds,
+            "params": n_params, "whole_bytes": whole_bytes,
+            "rank_bytes": [{"params": rep["param_bytes"], "moments": rep["moment_bytes"],
+                            "share_of_whole": (rep["param_bytes"] + rep["moment_bytes"])
+                            / (whole_bytes["params"] + whole_bytes["moments"])}
+                           for rep in reports],
+            "peak_memory_gb": [rep["peak_memory_gb"] for rep in reports],
+            "moe_cap_drop_peak_per_step": r0["moe"]},
+        "float32_check": {"layers": MESH_CHECK_LAYERS, "aux_weight": 0.0, "tf32": False,
+                          "capacity": "loss-free", "mesh": mesh_m, "one_rank": one_m,
+                          "rel": rel_check, "tolerance": MESH_CHECK_RTOL},
+        "greedy_decode": {"prompt": MESH_PROMPT, "tokens": MESH_DECODE, "mesh": greedy,
+                          "equal_one_rank": True},
+        "kernel_launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this script needs one card")
@@ -1758,14 +2019,18 @@ def main() -> None:
     # -- NaN keys through model B and the argsort; then the LM serving path:
     # qwen3-0.6b decoding with the kernel top-k, granite's MoE stack, the
     # MoE capacity loop at width; then the training path
+    results = {}
     for label, phase in (("nan_merge", lambda: phase_nan_merge(kernels, device, add)),
                          ("lm_serve", lambda: phase_lm_serve(kernels, device, add)),
                          ("lm_moe", lambda: phase_lm_moe(device)),
                          ("moe_serve", lambda: phase_moe_serve(device)),
-                         ("lm_train", lambda: phase_lm_train(kernels, device))):
+                         ("lm_train", lambda: phase_lm_train(kernels, device)),
+                         ("lm_mesh", lambda: phase_lm_mesh(kernels, device, results["lm_train"]))):
         print(smi, flush=True)
         t0 = time.perf_counter()
-        emit({"phase": label, "nvidia_smi": smi, **phase(), "phase_seconds": time.perf_counter() - t0})
+        results[label] = phase()
+        emit({"phase": label, "nvidia_smi": smi, **results[label],
+              "phase_seconds": time.perf_counter() - t0})
 
     # -- path times beside their library yardsticks
     paths = {

@@ -32,6 +32,7 @@ __all__ = [
     "params_from_reference",
     "plan_from_reference",
     "planner_from_reference",
+    "shard_from_reference",
     "tensor_from_reference",
     "tensor_to_reference",
 ]
@@ -132,6 +133,20 @@ def opt_state_from_reference(state: dict, device="cuda") -> dict:
     if unknown or not {"m", "v", "count"} <= set(state):
         raise ValueError(f"not an AdamW state: keys {sorted(state)}")
     return params_from_reference(state, device)
+
+
+def shard_from_reference(tree, specs, mesh, device="cuda"):
+    """This rank's block of the reference's params or optimizer state
+    (nested dicts of arrays) under ``specs`` (``distributed.sharding``),
+    each spec fitted to its whole leaf, placed as ``tensor_from_reference``
+    places it; only the block is copied to ``device``."""
+    from repro_torch.distributed.sharding import block_slices, fit_spec
+
+    if isinstance(tree, dict):
+        return {k: shard_from_reference(v, specs[k], mesh, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return tensor_from_reference(a[block_slices(a.shape, fit_spec(a.shape, specs, mesh), mesh)],
+                                 device)
 
 
 def cache_from_reference(cache: dict, device="cuda") -> dict:

@@ -18,6 +18,14 @@ keys sorted, sequences in order, ``None`` no leaf), so a checkpoint written
 by either package restores into the other's tree.  ``restore(like)`` gives
 each tensor leaf ``like``'s dtype and device; a Python or numpy scalar leaf
 comes back as a 0-d numpy array of its dtype.
+
+On a mesh (``shardings=`` the tree's specs, ``mesh=`` its
+``launch.mesh.Mesh``) checkpoints stay whole, as the reference stores
+them: ``save`` gathers every leaf from the ranks' blocks, a collective
+that every rank enters before any thread starts, and rank 0 alone writes.
+``restore`` cuts each rank's block of each whole leaf (``fit_spec``), so a
+checkpoint restores onto any mesh, or onto one device, whatever mesh
+saved it.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.carry import tensor_from_reference
+from repro_torch.distributed.sharding import block_slices, fit_spec, unshard_tree
 
 __all__ = ["CheckpointManager"]
 
@@ -48,6 +57,17 @@ def _flatten(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in _flatten(t)]
     return [tree]
+
+
+def _leaf_specs(tree, specs) -> list:
+    """The specs of ``tree``'s leaves, in ``_flatten``'s order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _leaf_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for t, sp in zip(tree, specs) for s in _leaf_specs(t, sp)]
+    return [specs]
 
 
 def _unflatten(like, leaves):
@@ -128,9 +148,23 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -------------------------------------------------------------- save ---
-    def save(self, step: int, tree: Any, *, blocking: bool = True) -> None:
+    def save(self, step: int, tree: Any, *, blocking: bool = True, shardings: Any = None,
+             mesh=None) -> None:
+        """Save ``tree`` as step ``step``.  With ``shardings`` (the fitted
+        specs of ``tree``'s blocks) and ``mesh``, every rank must call it:
+        the leaves are gathered whole on the caller's thread, then rank 0
+        writes them."""
         self.wait()  # one in-flight async save at a time
-        host = [_to_host(x) for x in _flatten(tree)]
+        if shardings is not None:
+            host = []
+            for x, spec in zip(_flatten(tree), _leaf_specs(tree, shardings)):
+                if isinstance(x, torch.Tensor):  # one leaf whole at a time
+                    x = unshard_tree(x, spec, mesh)
+                host.append(_to_host(x) if mesh.rank == 0 else None)
+            if mesh.rank != 0:
+                return
+        else:
+            host = [_to_host(x) for x in _flatten(tree)]
         structure = json.dumps(_structure(tree))
 
         def write():
@@ -161,17 +195,17 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------ restore ---
-    def restore(self, like: Any, *, step: Optional[int] = None, shardings: Any = None):
+    def restore(self, like: Any, *, step: Optional[int] = None, shardings: Any = None,
+                mesh=None):
         """Restore into the structure of ``like`` (which supplies dtypes and
         devices); returns ``(tree, step)``.  The latest step counts a save
-        of this manager still in flight.  ``shardings`` (placing each leaf
-        on a mesh) waits for the mesh slice and raises."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) is not ported yet (ROADMAP Queue 1 item 9b, "
-                "distributed/sharding.py); restore onto one device and place the leaves"
-            )
+        of this manager still in flight.  With ``shardings`` (specs of
+        ``like``'s leaves, fitted or not) and ``mesh`` every rank must call
+        it, and each gets its block of every leaf, cut by the spec fitted
+        to the whole leaf's shape."""
         self.wait()  # this manager's save in flight lands first
+        if shardings is not None:  # rank 0's save in flight lands before anyone reads
+            torch.distributed.barrier(group=mesh.world.group)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -180,5 +214,8 @@ class CheckpointManager:
         flat_like = _flatten(like)
         if len(host) != len(flat_like):
             raise ValueError(f"checkpoint has {len(host)} leaves, expected {len(flat_like)}")
+        if shardings is not None:
+            host = [h if np.ndim(h) == 0 else h[block_slices(h.shape, fit_spec(h.shape, spec, mesh), mesh)]
+                    for h, spec in zip(host, _leaf_specs(like, shardings))]
         leaves = iter([_restore_leaf(h, l) for h, l in zip(host, flat_like)])
         return _unflatten(like, leaves), step

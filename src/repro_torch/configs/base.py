@@ -3,9 +3,10 @@ reduction (torch).
 
 Counterpart of ``repro/configs/base.py``: the same ten ``ARCHS`` with the
 same numbers and names, ``SHAPES``, ``SUBQUADRATIC``, ``cell_applicable``,
-``all_cells`` and ``reduced``, with torch dtypes.  The reference's
-``input_specs`` / ``cache_specs`` (abstract shapes for its dry-run) wait for
-the drivers that use them.
+``all_cells``, ``reduced`` and the abstract shapes ``input_specs`` /
+``cache_specs``, with torch dtypes.  An abstract shape is a tensor on the
+``meta`` device, the port's ``jax.ShapeDtypeStruct``: shape and dtype, no
+storage.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from .musicgen_medium import CONFIG as _musicgen
 from .qwen2_7b import CONFIG as _qwen2
 from .qwen3_0_6b import CONFIG as _qwen3
 
-__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "cell_applicable", "all_cells", "reduced"]
+__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "cell_applicable", "all_cells", "reduced",
+           "input_specs", "cache_specs"]
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c
@@ -70,6 +72,43 @@ def cell_applicable(arch: str, shape: str) -> bool:
 
 def all_cells():
     return [(a, s) for a in ARCHS for s in SHAPES if cell_applicable(a, s)]
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> dict:
+    """``meta`` stand-ins for every model input of this cell.
+
+    train   -> {tokens (B, S), labels (B, S) [, frontend_embeds (B, F, D)]}
+    prefill -> {tokens (B, S) [, frontend_embeds]}
+    decode  -> {tokens (B, 1)} (the cache comes from ``cache_specs``)
+
+    >>> input_specs(ARCHS["qwen3-0.6b"], "decode_32k")["tokens"].shape
+    torch.Size([128, 1])
+    """
+    S, B, kind = SHAPES[shape]
+
+    def tok(*dims):
+        return torch.empty(dims, dtype=torch.int32, device="meta")
+
+    if kind == "train":
+        specs = {"tokens": tok(B, S), "labels": tok(B, S)}
+    elif kind == "prefill":
+        specs = {"tokens": tok(B, S)}
+    else:  # decode: one new token against a cache of length S
+        specs = {"tokens": tok(B, 1)}
+    if cfg.frontend != "none" and kind != "decode":
+        specs["frontend_embeds"] = torch.empty((B, cfg.n_frontend_tokens, cfg.d_model),
+                                               dtype=cfg.compute_dtype, device="meta")
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: str) -> dict:
+    """``meta`` stand-ins of the decode cache for this cell (no storage)."""
+    from repro_torch.models.transformer import init_cache
+
+    S, B, kind = SHAPES[shape]
+    if kind != "decode":
+        raise ValueError(f"{shape} is a {kind} cell: only decode cells have a cache")
+    return init_cache(cfg, B, S, device="meta")
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

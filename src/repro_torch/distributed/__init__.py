@@ -1,1 +1,1 @@
-"""Fault tolerance (torch): watchdog, anomaly monitor and the recovery loop."""
+"""Distribution (torch): layout rules and per-rank blocks, watchdog, anomaly monitor and the recovery loop."""

@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 
 class StepTimeout(RuntimeError):
@@ -129,9 +130,12 @@ def run_with_recovery(
     step_deadline_s: float = 3600.0,
     max_restarts: int = 3,
     monitor: Optional[AnomalyMonitor] = None,
+    agree: Optional[Callable[[bool], bool]] = None,
 ) -> dict:
     """The production training control loop, minus the cluster scheduler.
 
+    ``agree(failed)`` (on a mesh: ``any_rank(group)``) turns this rank's
+    verdict on a step into every rank's, so all restore together.
     Returns summary {steps_run, restarts, last_metrics}.
     """
     monitor = monitor or AnomalyMonitor()
@@ -139,16 +143,42 @@ def run_with_recovery(
     step = 0
     last_metrics: dict = {}
     while step < n_steps:
+        failure: Optional[Exception] = None
         try:
             with StepWatchdog(step_deadline_s):
                 last_metrics = step_fn(step)
             monitor.check(last_metrics)
+        except (StepTimeout, TrainingAnomaly) as e:
+            failure = e
+        if agree is not None and agree(failure is not None) and failure is None:
+            failure = TrainingAnomaly(f"another rank failed step {step}")
+        if failure is None:
             step += 1
             if step % checkpoint_every == 0 or step == n_steps:
                 save_fn(step)
-        except (StepTimeout, TrainingAnomaly):
-            restarts += 1
-            if restarts > max_restarts:
-                raise
-            step = restore_fn()
+            continue
+        restarts += 1
+        if restarts > max_restarts:
+            raise failure
+        step = restore_fn()
     return {"steps_run": step, "restarts": restarts, "last_metrics": last_metrics}
+
+
+def any_rank(group, device="cpu") -> Callable[[bool], bool]:
+    """``agree`` for ``run_with_recovery``: True on every rank of ``group``
+    (an ``AxisGroup``) when any rank passes True.  ``device`` carries the
+    flag (the card under NCCL)."""
+    def agree(flag: bool) -> bool:
+        return bool(group.pmax(torch.tensor([int(flag)], device=device)).item())
+
+    return agree
+
+
+def agree_metrics(metrics: dict, group, device="cpu") -> dict:
+    """``metrics`` with every scalar replaced by rank 0's of ``group``, so
+    every rank's monitor and capacity controller decide alike; other
+    entries pass through."""
+    keys = sorted(k for k, v in metrics.items() if isinstance(v, (int, float)))
+    vals = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64, device=device)
+    vals = group.broadcast(vals, 0).tolist()
+    return {**metrics, **dict(zip(keys, vals))}

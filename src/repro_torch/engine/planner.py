@@ -204,7 +204,7 @@ def mesh_fingerprint(mesh=None, *, device=None) -> str:
     """Stable id for the hardware a plan was tuned on.
 
     ``local/<platform>`` with no group, ``<platform>/ranks=<P>`` for a group
-    of P ranks; the platform is the device type, with the card's name on
+    of P ranks, ``<platform>/<axis>=<size>,...`` for a named mesh; the platform is the device type, with the card's name on
     CUDA.  When the default group has W > 1 ranks, ``/procs<W>x1`` follows
     (one device a process), so a multi-process plan never masquerades as a
     single-process one.  ``device`` defaults to this process's default
@@ -217,6 +217,9 @@ def mesh_fingerprint(mesh=None, *, device=None) -> str:
     topo = f"/procs{world}x1" if world > 1 else ""
     if mesh is None:
         return f"local/{_platform(device)}{topo}"
+    if hasattr(mesh, "axis_names"):  # a named mesh (launch.mesh.Mesh): its axes, as the reference's
+        axes = ",".join(f"{name}={size}" for name, size in mesh.shape.items())
+        return f"{_platform(device)}/{axes}{topo}"
     return f"{_platform(device)}/ranks={as_axis_group(mesh).size}{topo}"
 
 

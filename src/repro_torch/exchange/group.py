@@ -14,6 +14,20 @@ memory).  Nothing here moves a tensor to another device to suit a backend.
 
 ``all_to_all`` is differentiable (its own transpose carries the cotangent
 back), as the reference's ``jax.lax.all_to_all`` is.
+
+The model stack on a mesh differentiates through four more collectives,
+in the explicit form of what the reference leaves to XLA.  Their
+convention is Megatron's: a tensor replicated over a group carries the
+whole gradient on every rank of it.
+
+* ``reduce_from(group, t)``: forward sum over the group, backward identity
+  (partial results, each rank's own, combined into a replicated one);
+* ``copy_to(group, t)``: forward identity, backward sum (a replicated
+  tensor entering work that the ranks split among them);
+* ``gather_from(group, t, dim)``: forward concatenation of the ranks'
+  blocks along ``dim``, backward this rank's block;
+* ``split_to(group, t, dim)``: forward this rank's block, backward the
+  concatenation.
 """
 from __future__ import annotations
 
@@ -22,7 +36,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["AxisGroup", "as_axis_group"]
+__all__ = ["AxisGroup", "as_axis_group", "copy_to", "gather_from", "reduce_from", "split_to"]
 
 
 class _AllToAll(torch.autograd.Function):
@@ -81,6 +95,13 @@ class AxisGroup:
         """Minimum over the axis (``jax.lax.pmin``)."""
         return self._reduce(t, dist.ReduceOp.MIN)
 
+    def broadcast(self, t: torch.Tensor, root: int = 0) -> torch.Tensor:
+        """Rank ``root``'s ``t`` on every rank."""
+        out = t.clone()
+        src = root if self.group is None else dist.get_global_rank(self.group, root)
+        dist.broadcast(out, src=src, group=self.group)
+        return out
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order: shape ``(P, *t.shape)``
         (``jax.lax.all_gather``).  The list form, which NCCL and gloo both
@@ -89,6 +110,35 @@ class AxisGroup:
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         return torch.stack(parts)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks concatenated along ``dim`` in rank order
+        (``jax.lax.all_gather(..., axis=dim, tiled=True)``)."""
+        if self.size == 1:
+            return t
+        return torch.cat(self.all_gather(t).unbind(0), dim=dim)
+
+    def split(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` (no communication)."""
+        n = t.shape[dim]
+        if n % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {self.size} ranks")
+        return t.narrow(dim, self.rank * (n // self.size), n // self.size)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the ranks of ``t``, this rank's block of it along
+        ``dim`` (``jax.lax.psum_scatter(..., tiled=True)``).  One
+        ``all_to_all`` and a local sum, which NCCL and gloo both take."""
+        if self.size == 1:
+            return t
+        n = t.shape[dim]
+        if n % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {self.size} ranks")
+        parts = torch.stack(t.chunk(self.size, dim=dim))
+        src = parts.contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.group)
+        return out.sum(dim=0)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Row ``j`` of the result is row ``rank`` of what rank ``j`` sent:
@@ -123,6 +173,71 @@ class AxisGroup:
         if not src:
             return torch.zeros_like(t)
         return out.view(t.shape)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return group.psum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.psum(g), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.split(g, ctx.dim).contiguous(), None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.split(t, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.gather(g.contiguous(), ctx.dim), None, None
+
+
+def reduce_from(group: AxisGroup, t: torch.Tensor) -> torch.Tensor:
+    """Sum over ``group``; the gradient passes through unchanged."""
+    return t if group.size == 1 else _ReduceFrom.apply(t, group)
+
+
+def copy_to(group: AxisGroup, t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself; its gradient is summed over ``group``."""
+    return t if group.size == 1 else _CopyTo.apply(t, group)
+
+
+def gather_from(group: AxisGroup, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim``; the gradient comes
+    back as this rank's block."""
+    return t if group.size == 1 else _GatherFrom.apply(t, group, dim)
+
+
+def split_to(group: AxisGroup, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim``; the gradient comes back
+    concatenated over ``group``."""
+    return t if group.size == 1 else _SplitTo.apply(t, group, dim)
 
 
 def as_axis_group(mesh) -> AxisGroup:

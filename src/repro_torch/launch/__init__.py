@@ -1,1 +1,1 @@
-"""Drivers (torch): serving and single-device training; mesh and dry-run wait."""
+"""Drivers (torch): serving, training on one device or a mesh, and named meshes; the dry-run waits."""

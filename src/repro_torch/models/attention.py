@@ -7,8 +7,9 @@ per-kind RoPE theta.  Scores and the value sums accumulate in float32 (the
 reference's ``preferred_element_type``), on upcast operands.  Global layers
 scan KV chunks with the online-softmax recurrence, never building the
 (S, S) score matrix; local (sliding-window) layers attend to their own and
-the previous key block only.  Head pinning for a mesh (the reference's
-``constrain``) waits for the mesh branches of the model stack.
+the previous key block only.  ``constrain`` takes the reference's head
+pins (``ShardCtx.constrain_spec``), placement hints that are identities in
+the port: on a mesh every rank of a model group runs whole heads.
 """
 from __future__ import annotations
 
@@ -154,11 +155,18 @@ def _blocked_local(q, k, v, cfg: AttnConfig):
     return out.reshape(B, S, H, hd)[:, :S0].to(q.dtype)
 
 
-def attention_train(p: Params, cfg: AttnConfig, x: torch.Tensor) -> torch.Tensor:
+def _pin_heads(q, k, v, constrain):
+    """The reference's head pins on q, k, v (batch, -, heads over "model", -)."""
+    if constrain is None:
+        return q, k, v
+    return tuple(constrain(t, "batch", None, "model", None, allow_uneven=True) for t in (q, k, v))
+
+
+def attention_train(p: Params, cfg: AttnConfig, x: torch.Tensor, constrain=None) -> torch.Tensor:
     """Causal self-attention over the full sequence (training / prefill)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _pin_heads(*_project_qkv(p, cfg, x, positions), constrain)
     if cfg.sliding_window and S > cfg.sliding_window:
         out = _blocked_local(q, k, v, cfg)
     else:

@@ -167,12 +167,16 @@ def _heads_from_conv(cfg: MambaConfig, xbc: torch.Tensor):
     return xs, B_, C_
 
 
-def mamba_scan(p: Params, cfg: MambaConfig, x: torch.Tensor):
+def mamba_scan(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None):
     """Full-sequence forward x (B, S, D) -> (y (B, S, D), the pre-conv xbc,
-    the final SSM state): ``mamba_train`` and prefill share it."""
+    the final SSM state): ``mamba_train`` and prefill share it.
+    ``constrain`` takes the reference's pins (heads and channels over
+    "model"), identities in the port."""
     B, S, _ = x.shape
-    z, xbc, dt = _split_proj(cfg, linear(p["in_proj"], x))
-    xs, B_, C_ = _heads_from_conv(cfg, _causal_conv(p, cfg, xbc))
+    pin = constrain or (lambda t, *axes: t)
+    z, xbc, dt = _split_proj(cfg, pin(linear(p["in_proj"], x), "batch", None, "model"))
+    xs, B_, C_ = _heads_from_conv(cfg, pin(_causal_conv(p, cfg, xbc), "batch", None, "model"))
+    xs = pin(xs, "batch", None, "model", None)
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, h_last = _ssd_chunked(cfg, xs, dt, B_, C_, A)
@@ -182,9 +186,9 @@ def mamba_scan(p: Params, cfg: MambaConfig, x: torch.Tensor):
     return linear(p["out_proj"], y), xbc, h_last
 
 
-def mamba_train(p: Params, cfg: MambaConfig, x: torch.Tensor) -> torch.Tensor:
+def mamba_train(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None) -> torch.Tensor:
     """Full-sequence forward (train / prefill). x (B, S, D) -> (B, S, D)."""
-    return mamba_scan(p, cfg, x)[0]
+    return mamba_scan(p, cfg, x, constrain)[0]
 
 
 def mamba_decode(p: Params, cfg: MambaConfig, x: torch.Tensor, cache: MambaCache):

@@ -38,6 +38,7 @@ from repro_torch.exchange import (
     partition_exchange,
     run_with_capacity_retries,
 )
+from repro_torch.exchange.group import reduce_from
 
 from .layers import Params, gelu, linear_init, normal
 
@@ -137,6 +138,7 @@ def moe_apply_local(
     cfg: MoEConfig,
     x: torch.Tensor,
     group: AxisGroup,
+    all_group: Optional[AxisGroup] = None,
     *,
     capacity: Optional[int] = None,
     with_stats: bool = False,
@@ -145,8 +147,9 @@ def moe_apply_local(
 
     ``x``: (T_loc, D), this rank's tokens; ``p``: this rank's experts
     (``moe_shard_specs``), router replicated.  Returns ``(y (T_loc, D), aux,
-    overflow)``, ``aux`` averaged and ``overflow`` maxed over the group (the
-    reference with ``all_axes`` = its one axis).  ``with_stats=True``
+    overflow)``, ``aux`` averaged and ``overflow`` maxed over ``all_group``,
+    the whole mesh (the reference's ``all_axes``; ``group`` when None).
+    Each rank's ``aux`` gradient is its own share.  ``with_stats=True``
     returns ``(y, aux, dropped, counts, peak, overflow)``: group-global
     per-expert ``counts``, the largest per-(sender, expert) count ``peak``
     and the group total of dropped tokens.
@@ -177,8 +180,7 @@ def moe_apply_local(
     y = y.reshape(e_loc, ep, cap, D).permute(1, 0, 2, 3).reshape(ep, e_loc * cap, D)
     back = combine_exchange(y, ex, group)                   # (T*k, D)
     out = _combine_gates(back, top_gate, T, cfg.top_k).to(x.dtype)
-    aux = group.psum(aux) / ep
-    overflow = ex.overflow
+    aux, overflow = _over_all(aux, ex.overflow, all_group or group)
     if with_stats:
         counts = group.psum(ex.counts)                      # (e_pad,) global
         dropped = group.psum(torch.clamp(ex.counts - cap, min=0).sum())
@@ -187,31 +189,50 @@ def moe_apply_local(
     return out, aux, overflow
 
 
+def _over_all(aux: torch.Tensor, overflow: torch.Tensor, group: Optional[AxisGroup]):
+    """``aux`` averaged over ``group`` (each rank's gradient its own share)
+    and ``overflow`` maxed over it."""
+    if group is None or group.size == 1:
+        return aux, overflow
+    aux = reduce_from(group, aux) / group.size
+    return aux, group.pmax(overflow.to(torch.int32)).bool()
+
+
 def moe_apply_ep_replicated(
     p: Params,
     cfg: MoEConfig,
     x: torch.Tensor,
+    group: Optional[AxisGroup] = None,
+    all_group: Optional[AxisGroup] = None,
     *,
     capacity: Optional[int] = None,
     with_stats: bool = False,
 ):
-    """MoE forward on one device: the reference's replicated-token path
-    with no EP axis (the form that sums expert shards over an EP group
-    waits for the mesh branches of the model stack).
+    """MoE forward with the tokens replicated over the EP ``group`` (the
+    decode path; one device when ``group`` is None).
+
+    Every rank routes the same tokens but runs only its own experts
+    (``p`` holds them, ``moe_shard_specs``); the outputs are summed over
+    the group.  No all_to_all: for small decode batches the repeated
+    routing is cheaper than the exchange.  ``aux`` is averaged and
+    ``overflow`` maxed over ``all_group`` (the whole mesh).
 
     ``capacity`` and ``with_stats`` follow ``moe_apply_local``:
     ``with_stats=True`` returns ``(y, aux, dropped, counts, peak,
     overflow)``.  torch has no scatter that drops out-of-range indices, so
-    the slab has one spare slot that every dropped token writes to, cut off
-    after.
+    the slab has one spare slot that every dropped token, and every token
+    bound for another rank's experts, writes to, cut off after.
     """
     T, D = x.shape
     e_loc = p["w_in"].shape[0]
+    my = 0 if group is None else group.rank
     device = x.device
 
     probs, top_idx, top_gate, aux = router_probs(p, cfg, x)
 
-    bucket = top_idx.reshape(-1).to(torch.int32)            # (T*k,) expert ids
+    keys = top_idx.reshape(-1).to(torch.int32)              # (T*k,) global expert ids
+    local = keys - my * e_loc
+    bucket = torch.where((local >= 0) & (local < e_loc), local, e_loc)  # e_loc: another rank's
     m = bucket.shape[0]
     cap = capacity if capacity is not None else expert_capacity(
         T, cfg.top_k, cfg.n_experts, cfg.capacity_factor
@@ -219,10 +240,10 @@ def moe_apply_ep_replicated(
 
     order = torch.argsort(bucket, stable=True)
     sorted_b = bucket[order]
-    counts = torch.bincount(bucket, minlength=e_loc).to(torch.int32)
+    counts = torch.bincount(bucket, minlength=e_loc + 1).to(torch.int32)
     offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     pos = torch.arange(m, dtype=torch.int32, device=device) - offsets[sorted_b.long()]
-    valid = pos < cap
+    valid = (pos < cap) & (sorted_b < e_loc)
     slot_sorted = torch.where(valid, sorted_b * cap + pos, e_loc * cap).long()
 
     vals = torch.repeat_interleave(x, cfg.top_k, dim=0)     # (T*k, D)
@@ -243,11 +264,21 @@ def moe_apply_ep_replicated(
     back = torch.where((send_slot >= 0)[:, None], flat[safe],
                        torch.zeros((), dtype=flat.dtype, device=device))
     out = _combine_gates(back, top_gate, T, cfg.top_k)
+    counts = counts[:e_loc]
     overflow = counts.max() > cap
+    if group is not None and group.size > 1:
+        out = reduce_from(group, out)
+        overflow = group.pmax(overflow.to(torch.int32)).bool()
+    aux, overflow = _over_all(aux, overflow, all_group)
     out = out.to(x.dtype)
     if with_stats:
         dropped = torch.clamp(counts - cap, min=0).sum()
-        return out, aux, dropped, counts, counts.max(), overflow
+        peak = counts.max()
+        if group is not None and group.size > 1:
+            counts = group.all_gather(counts).reshape(-1)
+            dropped = group.psum(dropped)
+            peak = group.pmax(peak)
+        return out, aux, dropped, counts, peak, overflow
     return out, aux, overflow
 
 

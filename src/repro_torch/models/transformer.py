@@ -14,10 +14,20 @@ Block kinds:
   mamba   Mamba-2 SSD
 Every block is pre-norm residual: x += Block(RMSNorm(x)); FFN likewise.
 
-``ShardCtx`` names a process group for the model's mesh branches (the
-vocab-parallel embedding and the expert-parallel FFN).  Those branches are
-not ported yet: a ``ShardCtx`` with a group raises ``NotImplementedError``
-rather than running on one device.  ``model_init`` and ``init_cache`` place
+``ShardCtx`` names a mesh (``repro_torch.launch.mesh.Mesh``) for the
+stack's mesh branches, run as explicit SPMD: every rank a process, its
+batch rows split over the batch axes (every axis but ``ep_axis``) and the
+residual stream replicated over ``ep_axis``, so attention, Mamba and dense
+FFNs run whole heads on each rank of a model group.  Params come in the
+compute layout (``distributed.sharding.compute_specs``): the embedding
+table vocab-sharded over ``ep_axis`` (the vocab-parallel embedding and
+logits), every expert stack expert-sharded over it.  An MoE FFN takes each
+model rank's contiguous share of the data shard's tokens into
+``moe_apply_local`` (model D's all_to_all) and gathers the outputs back,
+for train and prefill; decode replicates the tokens over the group and
+sums each rank's experts' outputs.  The reference's sharding pins
+(``constrain_batch``, ``constrain_spec``) are placement hints with no
+numeric effect, identities here.  ``model_init`` and ``init_cache`` place
 their tensors on ``device``, the card by default.
 """
 from __future__ import annotations
@@ -27,9 +37,11 @@ from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils._pytree import tree_map
 
 from repro_torch.carry import check_device
+from repro_torch.exchange.group import gather_from, reduce_from, split_to
 
 from .attention import (
     AttnConfig,
@@ -46,12 +58,13 @@ from .mamba2 import (
     mamba_init,
     mamba_train,
 )
-from .moe import MoEConfig, moe_apply_ep_replicated, moe_init
+from .moe import MoEConfig, moe_apply_ep_replicated, moe_apply_local, moe_init
 
 __all__ = [
     "ModelConfig",
     "ShardCtx",
     "embed_tokens",
+    "logits_of",
     "padded_vocab",
     "model_init",
     "forward",
@@ -172,29 +185,78 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ShardCtx:
-    """How the model parallelizes.  ``group=None``: one device."""
-    group: Any = None
+    """How the model parallelizes.  ``mesh=None``: one device."""
+    mesh: Any = None
+    axes: Tuple[str, ...] = ()      # the mesh axes; the batch shards over all but ep_axis
+    ep_axis: str = "model"
 
     @property
     def ep_shards(self) -> int:
-        return 1 if self.group is None else self.group.size
+        return 1 if self.mesh is None else self.mesh.shape[self.ep_axis]
 
-    def single_device(self, what: str) -> None:
-        """Raise for a mesh branch that is not ported yet."""
-        if self.group is not None:
-            raise NotImplementedError(
-                f"{what} on a process group is not ported yet (ROADMAP Queue 1 item 9b, "
-                "the mesh branches of the model stack); "
-                "pass ShardCtx() to run on one device"
-            )
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a != self.ep_axis)
+
+    def pick_batch_axes(self, n: int) -> Tuple[str, ...]:
+        """Largest prefix of batch axes whose sizes divide ``n`` (small decode
+        batches cannot use every axis)."""
+        axes, rem = [], n
+        for a in self.batch_axes:
+            sz = self.mesh.shape[a]
+            if rem % sz == 0:
+                axes.append(a)
+                rem //= sz
+        return tuple(axes)
+
+    def group(self, axes):
+        """The ``AxisGroup`` over ``axes`` (``None`` for none)."""
+        return self.mesh.group(axes)
+
+    @property
+    def ep_group(self):
+        return self.mesh.group(self.ep_axis)
+
+    def constrain_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference pins dim 0 of an activation to the batch axes; the
+        port's ranks hold their rows already, so this is the identity."""
+        return x
+
+    def constrain_spec(self, x: torch.Tensor, *axes, allow_uneven: bool = False) -> torch.Tensor:
+        """The reference's activation pin (a placement hint): the identity."""
+        return x
 
 
 def embed_tokens(p_embed: Params, tokens: torch.Tensor, cfg: ModelConfig,
                  ctx: Optional[ShardCtx]) -> torch.Tensor:
-    """Token embedding lookup (the vocab-parallel form under a group waits)."""
-    if ctx is not None:
-        ctx.single_device("the vocab-parallel embedding")
-    return embed(p_embed, tokens, cfg.compute_dtype)
+    """Token embedding lookup.  On a mesh it is vocab-parallel: each rank
+    of the ``ep_axis`` group looks up the tokens in its rows of the table,
+    zeros elsewhere, and the results are summed over the group."""
+    if ctx is None or ctx.mesh is None:
+        return embed(p_embed, tokens, cfg.compute_dtype)
+    group = ctx.ep_group
+    tbl = p_embed["table"]
+    vloc = tbl.shape[0]
+    rel = tokens.long() - group.rank * vloc
+    ok = (rel >= 0) & (rel < vloc)
+    out = F.embedding(torch.clamp(rel, 0, vloc - 1), tbl.to(cfg.compute_dtype))
+    out = torch.where(ok[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return reduce_from(group, out)
+
+
+def logits_of(p_embed: Params, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The tied head's float32 logits (padding rows ``-inf``).  On a mesh
+    each rank projects onto its rows of the table and the logits are
+    gathered over the ``ep_axis`` group."""
+    if ctx is None or ctx.mesh is None:
+        return unembed(p_embed, x, cfg.vocab_size)
+    full = gather_from(ctx.ep_group, unembed(p_embed, x), x.dim() - 1)
+    v_pad = full.shape[-1]
+    if v_pad != cfg.vocab_size:
+        keep = torch.arange(v_pad, device=full.device) < cfg.vocab_size
+        full = torch.where(keep, full, float("-inf"))
+    return full
 
 
 # ------------------------------------------------------------------ init ---
@@ -257,25 +319,49 @@ def group_params(blocks, g: int):
 
 # --------------------------------------------------------------- forward ---
 def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx, stats: dict, *,
-               moe_capacity: Optional[int] = None, moe_stats: bool = False):
+               decode: bool = False, moe_capacity: Optional[int] = None,
+               moe_stats: bool = False):
     """Pre-norm FFN residual; an MoE FFN adds its aux loss and overflow flag
     to ``stats``.  ``moe_capacity`` overrides the per-(sender, expert) token
     capacity (the train loop's capacity controller passes the learned
     value); ``moe_stats=True`` adds ``moe_dropped`` (summed over layers) and
     ``moe_peak`` (maxed over layers), what the between-step learner and
-    ``AnomalyMonitor`` read.  The expert-parallel branches under a group
-    wait for the mesh slice."""
+    ``AnomalyMonitor`` read; on a mesh both cover every rank.
+
+    On a mesh, train and prefill (``decode=False``) hand each model rank
+    its contiguous share of the data shard's flattened tokens (the
+    reference's token sharding over every mesh axis) for model D's
+    dispatch, and gather the outputs back; decode replicates the tokens
+    over the model group and sums the ranks' experts."""
     h = rmsnorm(p["norm2"], x)
     if "ffn" in p:
         return x + mlp(p["ffn"], h), stats
-    ctx.single_device("the expert-parallel MoE FFN")
     B, S, D = h.shape
-    res = moe_apply_ep_replicated(p["moe"], cfg.moe_cfg(), h.reshape(B * S, D),
-                                  capacity=moe_capacity, with_stats=moe_stats)
-    if moe_stats:
-        y, aux, dropped, _, peak, overflow = res
+    flat = h.reshape(B * S, D)
+    mcfg = cfg.moe_cfg()
+    dropped = peak = None
+    if ctx.mesh is None:
+        res = moe_apply_ep_replicated(p["moe"], mcfg, flat, capacity=moe_capacity,
+                                      with_stats=moe_stats)
+        if moe_stats:
+            y, aux, dropped, _, peak, overflow = res
+        else:
+            y, aux, overflow = res
+    elif decode:
+        y, aux, overflow = moe_apply_ep_replicated(p["moe"], mcfg, flat, ctx.ep_group,
+                                                   ctx.group(ctx.axes))
     else:
-        y, aux, overflow = res
+        ep = ctx.ep_group
+        res = moe_apply_local(p["moe"], mcfg, split_to(ep, flat, 0), ep, ctx.group(ctx.axes),
+                              capacity=moe_capacity, with_stats=moe_stats)
+        if moe_stats:
+            y, aux, dropped, _, peak, overflow = res
+            rest = ctx.group(ctx.batch_axes)
+            if rest is not None:  # the stats are EP-group-wide; fold in the other axes
+                dropped, peak = rest.psum(dropped), rest.pmax(peak)
+        else:
+            y, aux, overflow = res
+        y = gather_from(ep, y, 0)
     stats = dict(stats)
     stats["moe_aux"] = stats.get("moe_aux", 0.0) + aux
     stats["moe_overflow"] = torch.logical_or(
@@ -291,10 +377,13 @@ def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx, stat
 def _apply_block(p: Params, cfg: ModelConfig, kind: str, ffn, x, ctx, stats, *,
                  moe_capacity: Optional[int] = None, moe_stats: bool = False):
     h = rmsnorm(p["norm1"], x)
+    pin = ctx.constrain_spec if ctx.mesh is not None else None
     if kind.startswith("attn"):
-        x = x + attention_train(p["attn"], cfg.attn_cfg(kind), h)
+        # the reference pins heads only where they do not divide the model axis
+        attn_pin = pin if (pin and cfg.n_heads % ctx.ep_shards) else None
+        x = x + attention_train(p["attn"], cfg.attn_cfg(kind), h, constrain=attn_pin)
     else:
-        x = x + mamba_train(p["mamba"], cfg.mamba_cfg(), h)
+        x = x + mamba_train(p["mamba"], cfg.mamba_cfg(), h, constrain=pin)
     if ffn is not None:
         x, stats = _apply_ffn(p, cfg, x, ctx, stats, moe_capacity=moe_capacity,
                               moe_stats=moe_stats)
@@ -323,10 +412,11 @@ def forward(
              "moe_overflow": torch.zeros((), dtype=torch.bool, device=x.device)}
     for g in range(cfg.n_groups):
         gp = group_params(params["blocks"], g)
+        x = ctx.constrain_batch(x)
         for i, (kind, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
             x, stats = _apply_block(gp[f"pos{i}"], cfg, kind, ffn, x, ctx, stats)
     x = rmsnorm(params["final_norm"], x)
-    logits = unembed(params["embed"], x, cfg.vocab_size)
+    logits = logits_of(params["embed"], x, cfg, ctx)
     return logits, {"moe_aux": stats["moe_aux"] / max(cfg.n_layers, 1),
                     "moe_overflow": stats["moe_overflow"]}
 
@@ -381,7 +471,7 @@ def decode_step(
             x = x + out
             new_gcache[f"pos{i}"] = nc
             if ffn is not None:
-                x, _ = _apply_ffn(p, cfg, x, ctx, {})
+                x, _ = _apply_ffn(p, cfg, x, ctx, {}, decode=True)
         new_groups.append(new_gcache)
     x = rmsnorm(params["final_norm"], x)
-    return unembed(params["embed"], x, cfg.vocab_size), stack_caches(new_groups)
+    return logits_of(params["embed"], x, cfg, ctx), stack_caches(new_groups)

@@ -15,6 +15,13 @@ checkpoints treat it like params.  A quantized moment is ``{"q": int8 in the
 param's shape, "scale": float32 (shape[:-1])}``.  The update is computed in
 float32 and cast back to the param's dtype, as the reference's is; rounding
 is half to even in both (``torch.round``, ``jnp.round``).
+
+On a mesh (``apply_updates(..., specs=, mesh=)``) every rank updates its
+blocks of the params and the state (``distributed.sharding``), and every
+reduction covers the whole leaf: ``global_norm`` sums squares over the
+blocks, counting each element once however many ranks hold it, and the
+row-wise int8 scales take the maximum over the axis that shards a leaf's
+last dim.  ``compress_grads`` quantizes the reduced gradient.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed.sharding import replication, spec_axes
 from repro_torch.tree import at_path, from_paths, map_leaves, paths
 
 __all__ = [
@@ -75,16 +83,21 @@ def lr_at(cfg: OptConfig, step) -> torch.Tensor:
 # row, so a moment is laid out (and later sharded) exactly like its param.
 
 
-def quantize_blockwise(x: torch.Tensor) -> dict:
+def quantize_blockwise(x: torch.Tensor, row_group=None) -> dict:
     """float tensor -> ``{"q": int8 (x.shape), "scale": float32
-    (x.shape[:-1])}``, row-wise absmax.
+    (x.shape[:-1])}``, row-wise absmax.  ``row_group`` (an ``AxisGroup``)
+    holds the rest of each row when the last dim is sharded: the absmax is
+    taken over it.
 
     >>> qs = quantize_blockwise(torch.tensor([[1.0, -2.0, 0.5]]))
     >>> qs["q"].tolist(), round(float(qs["scale"][0]), 6)
     ([[64, -127, 32]], 0.015748)
     """
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0
+    absmax = xf.abs().amax(dim=-1)
+    if row_group is not None:
+        absmax = row_group.pmax(absmax)
+    scale = absmax / 127.0
     q = torch.round(xf / torch.clamp(scale[..., None], min=1e-12)).to(torch.int8)
     return {"q": q, "scale": scale}
 
@@ -120,28 +133,45 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The L2 norm of every leaf together, accumulated in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for _, x in paths(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The L2 norm of every leaf together, accumulated in float32.  On a
+    mesh ``tree`` holds blocks under ``specs``: each block's sum of squares
+    is divided by the number of ranks holding it, and the sum is summed
+    over the mesh."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for _, x in paths(tree)))
+    total = sum(torch.sum(torch.square(x.float())) / replication(at_path(specs, path), mesh)
+                for path, x in paths(tree))
+    return torch.sqrt(mesh.world.psum(total))
+
+
+def _row_group(spec, mesh):
+    """The group over the axes that shard a leaf's last dim (None if none)."""
+    if not spec:
+        return None
+    axes = [a for a in spec_axes(spec[-1]) if mesh.shape[a] > 1]
+    return mesh.group(axes) if axes else None
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: OptConfig):
-    """One AdamW step.  Returns ``(new_params, new_state, {"grad_norm", "lr"})``."""
+def apply_updates(params, grads, state, cfg: OptConfig, *, specs=None, mesh=None):
+    """One AdamW step.  Returns ``(new_params, new_state, {"grad_norm", "lr"})``.
+    On a mesh, ``params``, ``grads`` and ``state`` are this rank's blocks
+    and ``specs`` the params' fitted specs."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     lr = lr_at(cfg, count)
     bc1 = 1 - cfg.b1 ** count.float()
     bc2 = 1 - cfg.b2 ** count.float()
 
-    def upd(p, g, m, v, err):
+    def upd(p, g, m, v, err, rows):
         g = g.float() * scale
         new_err = None
         if cfg.compress_grads:
             corrected = g + err
-            g = dequantize_blockwise(quantize_blockwise(corrected), corrected)
+            g = dequantize_blockwise(quantize_blockwise(corrected, rows), corrected)
             new_err = corrected - g
         if cfg.state_dtype == "int8":
             m_f = dequantize_blockwise(m, p)
@@ -154,15 +184,16 @@ def apply_updates(params, grads, state, cfg: OptConfig):
         pf = p.float()
         new_p = pf - lr * (step + cfg.weight_decay * pf)
         if cfg.state_dtype == "int8":
-            m_f = quantize_blockwise(m_f)
-            v_f = quantize_blockwise(v_f ** 0.25)
+            m_f = quantize_blockwise(m_f, rows)
+            v_f = quantize_blockwise(v_f ** 0.25, rows)
         return new_p.to(p.dtype), m_f, v_f, new_err
 
     out = []
     for path, p in paths(params):
         err = at_path(state["err"], path) if cfg.compress_grads else None
+        rows = None if mesh is None else _row_group(at_path(specs, path), mesh)
         out.append((path, upd(p, at_path(grads, path), at_path(state["m"], path),
-                              at_path(state["v"], path), err)))
+                              at_path(state["v"], path), err, rows)))
     new_state = {
         "m": from_paths((path, o[1]) for path, o in out),
         "v": from_paths((path, o[2]) for path, o in out),

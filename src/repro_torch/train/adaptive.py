@@ -27,7 +27,6 @@ import math
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.bitonic import next_pow2
 from repro_torch.exchange import ExchangeObservation, expert_capacity
@@ -40,9 +39,10 @@ class MoECapacityController:
     """Host-side capacity policy for one (model, token shape, group) cell.
 
     ``tokens`` is the global token count one forward pass dispatches (one
-    microbatch: ``batch * seq / n_microbatch``); every rank of
-    ``ctx.group`` is a sender of an equal slice (``ctx.group is None``: the
-    single-sender path on one device).  All learning lives in the planner's
+    microbatch: ``batch * seq / n_microbatch``); every rank of ``ctx.mesh``
+    is a sender of an equal slice (every mesh axis shards the token
+    flatten; ``ctx.mesh is None``: the single-sender path on one device).
+    All learning lives in the planner's
     ``CapacityLearner``, all persistence in the plan cache; this class only
     converts between the step's capacity and the planner's factor.
     """
@@ -52,13 +52,13 @@ class MoECapacityController:
         self.cfg = cfg
         self.tokens = int(tokens)
         self.planner = planner
-        group = getattr(ctx, "group", None)
-        n_dev = 1 if group is None else group.size
+        mesh = ctx.mesh
+        n_dev = 1 if mesh is None else math.prod(mesh.shape[a] for a in ctx.axes)
         if self.tokens % n_dev:
-            raise ValueError(f"tokens {self.tokens} must divide the {n_dev}-rank group")
+            raise ValueError(f"tokens {self.tokens} must divide the {n_dev}-rank mesh")
         self.t_loc = self.tokens // n_dev       # per-sender token slice
         self.m = self.t_loc * cfg.top_k         # per-sender assignments
-        self.key = moe_plan_key(self.tokens, cfg, dtype, group, device=device)
+        self.key = moe_plan_key(self.tokens, cfg, dtype, mesh, device=device)
 
     @property
     def factor(self) -> float:
@@ -105,26 +105,28 @@ class MoECapacityController:
         self.planner.observe_exchange(self.key, obs, default=self.cfg.capacity_factor)
 
 
-def parse_mesh_spec(spec: str, world_size: Optional[int] = None):
-    """``"data=2,model=4"`` -> (``{axis: size}`` in the spec's order, the
-    axis names), checked against the world size: the default process
-    group's when one is up, else 1 (``world_size`` overrides).  Raises
-    ``ValueError`` on a malformed spec or one that needs more ranks than
-    there are.
+def parse_mesh_spec(spec: str):
+    """``"data=2,model=4"`` -> a ``launch.mesh.Mesh`` over the default
+    process group (which must be up) plus its axis names, in the spec's
+    order (the batch shards over every axis but ``model``, the experts and
+    the vocabulary over ``model``, by ``ShardCtx``'s convention).  Raises
+    ``ValueError`` on a malformed spec or one whose size is not the world
+    size.
 
-    >>> parse_mesh_spec("data=1,model=1")
-    ({'data': 1, 'model': 1}, ('data', 'model'))
+    >>> import torch.distributed as dist
+    >>> dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    >>> mesh, axes = parse_mesh_spec("data=1,model=1")
+    >>> axes, mesh.shape
+    (('data', 'model'), {'data': 1, 'model': 1})
+    >>> dist.destroy_process_group()
     """
+    from repro_torch.launch.mesh import Mesh
+
     pairs = []
     for part in spec.split(","):
         name, _, size = part.partition("=")
         if not name or not size:
             raise ValueError(f"bad mesh spec {spec!r} (want axis=size,...)")
         pairs.append((name.strip(), int(size)))
-    sizes = dict(pairs)
-    need = math.prod(sizes.values())
-    if world_size is None:
-        world_size = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    if need > world_size:
-        raise ValueError(f"mesh {spec!r} needs {need} ranks, have {world_size}")
-    return sizes, tuple(sizes)
+    names = tuple(n for n, _ in pairs)
+    return Mesh(tuple(s for _, s in pairs), names), names

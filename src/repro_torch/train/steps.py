@@ -16,6 +16,19 @@ stack is a loop over groups, each group under ``torch.utils.checkpoint``:
 ``cfg.remat_policy == "dots"`` saves the outputs of matrix products
 (``aten.mm`` / ``bmm`` / ``addmm``) and recomputes the rest, ``"none"``
 recomputes the whole group.
+
+On a mesh (``ctx.mesh``) the steps run as explicit SPMD, one process a
+rank.  ``train_step`` takes each rank's blocks of the params and the
+optimizer state (``distributed.sharding``: ``specs`` are the params'
+fitted specs) and this rank's rows of the batch.  Each layer group's
+leaves are all-gathered to the compute layout inside the group's
+checkpointed body, so the recompute gathers them again, and the gradients
+come back to blocks by reduce-scatter (``sharding.gather_leaf``).  The
+loss is vocab-parallel (each model rank's logits over its rows of the
+table, the logsumexp combined by a max and a sum over "model", the gold
+logit a second vocab-parallel lookup) and its mean covers every batch
+row: sum and count are summed over the batch axes.  ``prefill_step`` and
+``serve_decode_step`` take params in the compute layout.
 """
 from __future__ import annotations
 
@@ -30,8 +43,16 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.models.attention import KVCache, _blocked_local, _flash_causal, _project_qkv
-from repro_torch.models.layers import linear, rmsnorm, unembed
+from repro_torch.distributed.sharding import gather_tree, map_with_path
+from repro_torch.exchange.group import copy_to, reduce_from
+from repro_torch.models.attention import (
+    KVCache,
+    _blocked_local,
+    _flash_causal,
+    _pin_heads,
+    _project_qkv,
+)
+from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.mamba2 import MambaCache, mamba_scan
 from repro_torch.models.transformer import (
     ModelConfig,
@@ -42,6 +63,7 @@ from repro_torch.models.transformer import (
     decode_step as model_decode_step,
     embed_tokens,
     group_params,
+    logits_of,
     stack_caches,
 )
 from repro_torch.optim.adamw import OptConfig, apply_updates
@@ -74,6 +96,24 @@ def _ce_chunk(xb, yb, table, gold_table, vocab_size: int):
     return loss.sum(), valid.sum().to(torch.int32)
 
 
+def _ce_chunk_mesh(xb, yb, table, cfg: ModelConfig, ctx: ShardCtx):
+    """``_ce_chunk`` with the table vocab-sharded over ``ctx.ep_axis``."""
+    group = ctx.ep_group
+    vloc = table.shape[0]
+    logits = torch.einsum("bcd,vd->bcv", copy_to(group, xb).float(), table.to(xb.dtype).float())
+    rows = group.rank * vloc + torch.arange(vloc, device=logits.device)
+    if group.size * vloc != cfg.vocab_size:  # padding rows of the table never win
+        logits = torch.where(rows < cfg.vocab_size, logits, float("-inf"))
+    # the shift is a constant: the logsumexp's value and gradient do not move with it
+    m = group.pmax(logits.detach().amax(dim=-1))
+    lz = torch.log(reduce_from(group, torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+    gold_emb = embed_tokens({"table": table}, torch.clamp(yb, min=0), cfg, ctx)
+    gold = torch.sum(xb.float() * gold_emb.float(), dim=-1)
+    valid = yb >= 0
+    loss = torch.where(valid, lz - gold, 0.0)
+    return loss.sum(), valid.sum().to(torch.int32)
+
+
 def chunked_ce_loss(
     x: torch.Tensor,            # (B, S, D) final hidden states (pre-unembed)
     p_embed: dict,              # {"table": (V, D)} tied embedding
@@ -86,22 +126,27 @@ def chunked_ce_loss(
     """Mean CE over the valid labels, the vocab projection run one sequence
     chunk at a time (the chunk is the largest divisor of S not above
     ``chunk``).  Each chunk is recomputed in the backward, so only one
-    chunk's logits are ever held."""
-    if ctx is not None:
-        ctx.single_device("the vocab-parallel loss")
+    chunk's logits are ever held.  On a mesh the logits are vocab-parallel
+    and the mean covers the rows of every rank (module docstring)."""
     B, S, D = x.shape
     c = min(chunk, S)
     while S % c:
         c -= 1
     table = p_embed["table"]
-    gold_table = table.to(cfg.compute_dtype)  # embed_tokens' lookup table
+    mesh = ctx is not None and ctx.mesh is not None
+    if mesh and ctx.ep_shards > 1:
+        fn, args = _ce_chunk_mesh, (table, cfg, ctx)
+    else:  # embed_tokens' lookup table for the gold logit
+        fn, args = _ce_chunk, (table, table.to(cfg.compute_dtype), cfg.vocab_size)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.int32, device=x.device)
     for i in range(S // c):
         sl = slice(i * c, (i + 1) * c)
-        loss, n = checkpoint(_ce_chunk, x[:, sl], labels[:, sl], table, gold_table,
-                             cfg.vocab_size, use_reentrant=False)
+        loss, n = checkpoint(fn, x[:, sl], labels[:, sl], *args, use_reentrant=False)
         tot, cnt = tot + loss, cnt + n
+    rows = ctx.group(ctx.batch_axes) if mesh else None
+    if rows is not None:  # each rank's gradient is that of its own rows' share
+        tot, cnt = reduce_from(rows, tot), rows.psum(cnt)
     return tot / torch.clamp(cnt, min=1)
 
 
@@ -113,7 +158,10 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _group_body(cfg: ModelConfig, ctx: ShardCtx, moe_capacity, x, gp, aux, ovf, drp, pk):
+def _group_body(cfg: ModelConfig, ctx: ShardCtx, moe_capacity, specs, x, gp, aux, ovf, drp, pk):
+    if specs is not None:  # stored blocks -> the compute layout, again in the recompute
+        gp = gather_tree(gp, specs, ctx.mesh, ep_axis=ctx.ep_axis)
+    x = ctx.constrain_batch(x)
     stats = {"moe_aux": aux, "moe_overflow": ovf, "moe_dropped": drp, "moe_peak": pk}
     for i, (kind, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
         x, stats = _apply_block(gp[f"pos{i}"], cfg, kind, ffn, x, ctx, stats,
@@ -124,13 +172,15 @@ def _group_body(cfg: ModelConfig, ctx: ShardCtx, moe_capacity, x, gp, aux, ovf, 
 
 
 def _hidden_states(params, cfg: ModelConfig, tokens, frontend_embeds, ctx, remat,
-                   moe_capacity=None):
+                   moe_capacity=None, block_specs=None):
     """Run the stack up to the final norm: (hidden states, stats).
 
     The stats carry ``moe_dropped`` (tokens lost to capacity overflow,
     summed over layers) and ``moe_peak`` (the hottest per-(sender, expert)
     count, maxed over layers) beside ``moe_aux`` / ``moe_overflow``.
-    ``moe_capacity`` overrides every MoE layer's capacity.
+    ``moe_capacity`` overrides every MoE layer's capacity.  With
+    ``block_specs`` (the stacked blocks' fitted specs on a mesh) each
+    group's blocks are gathered inside its body.
     """
     x = _with_frontend(embed_tokens(params["embed"], tokens, cfg, ctx), frontend_embeds)
     device = x.device
@@ -138,7 +188,9 @@ def _hidden_states(params, cfg: ModelConfig, tokens, frontend_embeds, ctx, remat
              torch.zeros((), dtype=torch.bool, device=device),
              torch.zeros((), dtype=torch.int32, device=device),
              torch.zeros((), dtype=torch.int32, device=device))
-    body = functools.partial(_group_body, cfg, ctx, moe_capacity)
+    group_specs = None if block_specs is None else map_with_path(
+        lambda _, spec: spec[1:], block_specs)  # one group's slice: no group axis
+    body = functools.partial(_group_body, cfg, ctx, moe_capacity, group_specs)
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
@@ -164,10 +216,22 @@ def loss_fn(
     loss_chunk: int = 512,
     remat: bool = True,
     moe_capacity: Optional[int] = None,
+    specs=None,
 ):
-    """``(loss, {"ce", "moe_aux", "moe_overflow", "moe_dropped", "moe_peak"})``."""
+    """``(loss, {"ce", "moe_aux", "moe_overflow", "moe_dropped", "moe_peak"})``.
+
+    On a mesh ``params`` are this rank's blocks under ``specs`` (their
+    fitted specs) and ``batch`` this rank's rows; the loss and the stats
+    are the whole batch's, the same on every rank."""
+    block_specs = None
+    if ctx.mesh is not None:
+        if specs is None:
+            raise ValueError("a mesh step takes the params' fitted specs (specs=)")
+        params = {**{k: gather_tree(params[k], specs[k], ctx.mesh, ep_axis=ctx.ep_axis)
+                     for k in params if k != "blocks"}, "blocks": params["blocks"]}
+        block_specs = specs["blocks"]
     x, stats = _hidden_states(params, cfg, batch["tokens"], batch.get("frontend_embeds"), ctx,
-                              remat, moe_capacity)
+                              remat, moe_capacity, block_specs)
     ce = chunked_ce_loss(x, params["embed"], batch["labels"], cfg, ctx, chunk=loss_chunk)
     loss = ce + aux_weight * stats["moe_aux"]
     return loss, {"ce": ce, **stats}
@@ -185,11 +249,14 @@ def train_step(
     loss_chunk: int = 512,
     remat: bool = True,
     moe_capacity: Optional[int] = None,
+    specs=None,
 ):
     """One optimizer step, optionally accumulating over microbatches.
 
     Returns ``(new_params, new_opt_state, metrics)``; ``params`` and
-    ``opt_state`` are not modified.  Gradients of several microbatches
+    ``opt_state`` are not modified.  On a mesh they are this rank's blocks
+    (``specs``: the params' fitted specs), the batch is this rank's rows,
+    and the gradients arrive reduced to the blocks.  Gradients of several microbatches
     accumulate in float32, each divided by ``n_microbatch``; the metrics
     sum ``moe_dropped`` and max ``moe_peak`` over microbatches, and keep
     the last microbatch's value of every other stat.
@@ -201,7 +268,7 @@ def train_step(
         p = from_paths((path, leaf) for (path, _), leaf in zip(pairs, leaves))
         with torch.enable_grad():
             loss, stats = loss_fn(p, cfg, b, ctx=ctx, loss_chunk=loss_chunk, remat=remat,
-                                  moe_capacity=moe_capacity)
+                                  moe_capacity=moe_capacity, specs=specs)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(leaf) if g is None else g for leaf, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in stats.items()}, grads
@@ -228,17 +295,19 @@ def train_step(
                  for k in per_micro[-1]}
 
     grad_tree = from_paths((path, g) for (path, _), g in zip(pairs, grads))
-    new_params, new_opt, metrics = apply_updates(params, grad_tree, opt_state, opt_cfg)
+    new_params, new_opt, metrics = apply_updates(params, grad_tree, opt_state, opt_cfg,
+                                                 specs=specs, mesh=ctx.mesh)
     return new_params, new_opt, {**metrics, "loss": loss, **stats}
 
 
 # ---------------------------------------------------------------- serving ---
-def _prefill_attention(p, cfg: ModelConfig, kind: str, h: torch.Tensor, cache_len: int):
+def _prefill_attention(p, cfg: ModelConfig, kind: str, h: torch.Tensor, cache_len: int,
+                       constrain=None):
     """One attention block over the prompt: (output, its KVCache)."""
     B, S, _ = h.shape
     acfg = cfg.attn_cfg(kind)
     positions = torch.arange(S, device=h.device).expand(B, S)
-    q, k, v = _project_qkv(p, acfg, h, positions)
+    q, k, v = _pin_heads(*_project_qkv(p, acfg, h, positions), constrain)
     if acfg.sliding_window and S > acfg.sliding_window:
         out = _blocked_local(q, k, v, acfg)
         w = acfg.sliding_window
@@ -273,6 +342,8 @@ def prefill_step(
     B, S = tokens.shape
     cache_len = cache_len or S
     x = _with_frontend(embed_tokens(params["embed"], tokens, cfg, ctx), frontend_embeds)
+    pin = ctx.constrain_spec if ctx.mesh is not None else None
+    attn_pin = pin if (pin and cfg.n_heads % ctx.ep_shards) else None  # as _apply_block
     per_group = []
     for g in range(cfg.n_groups):
         gp = group_params(params["blocks"], g)
@@ -281,10 +352,11 @@ def prefill_step(
             p = gp[f"pos{i}"]
             h = rmsnorm(p["norm1"], x)
             if kind.startswith("attn"):
-                out, new_cache[f"pos{i}"] = _prefill_attention(p["attn"], cfg, kind, h, cache_len)
+                out, new_cache[f"pos{i}"] = _prefill_attention(p["attn"], cfg, kind, h, cache_len,
+                                                               attn_pin)
             else:
                 mcfg = cfg.mamba_cfg()
-                out, xbc, h_last = mamba_scan(p["mamba"], mcfg, h)
+                out, xbc, h_last = mamba_scan(p["mamba"], mcfg, h, pin)
                 new_cache[f"pos{i}"] = MambaCache(
                     conv=xbc[:, S - (mcfg.conv_kernel - 1):, :].to(cfg.compute_dtype),
                     ssm=h_last,
@@ -294,7 +366,7 @@ def prefill_step(
                 x, _ = _apply_ffn(p, cfg, x, ctx, {})
         per_group.append(new_cache)
     x_last = rmsnorm(params["final_norm"], x[:, -1:])
-    logits = unembed(params["embed"], x_last, cfg.vocab_size)[:, 0]
+    logits = logits_of(params["embed"], x_last, cfg, ctx)[:, 0]
     return logits, stack_caches(per_group)
 
 

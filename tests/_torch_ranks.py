@@ -17,9 +17,12 @@ hand both sides the same inputs, written once to an ``.npz``:
 
 Both return the dicts; ``run_both`` starts the two sides at once.
 ``mesh_keys`` makes the seeded key sets the three files share.
+``one_rank_mesh`` brings up a one-rank gloo group in the test's own
+process and yields a (data=1, model=1) ``Mesh`` over it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -58,6 +61,19 @@ def shard(a):
     m = a.shape[0] // WORLD
     return torch.from_numpy(np.ascontiguousarray(a[RANK * m:(RANK + 1) * m]))
 """
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_debug_mesh()
+    finally:
+        dist.destroy_process_group()
 
 
 def mesh_keys(kind: str, dtype: str, n: int, seed: int) -> np.ndarray:

@@ -89,11 +89,17 @@ def test_restore_missing_raises(tmp_path):
 
 
 def test_restore_with_shardings_waits_for_the_mesh_slice(tmp_path):
-    """Accepted difference: the reference re-shards onto a mesh here."""
+    """restore(shardings=) onto a one-rank (data=1, model=1) mesh returns
+    the saved leaves bit for bit (the name is from when it raised here)."""
+    from _torch_ranks import one_rank_mesh
+
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(5, _tree())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        mgr.restore(_tree(), shardings={"a": None})
+    specs = {"nested": {"c": ("model",), "b": (("data", "model"),)}, "count": (), "a": ("data", None)}
+    with one_rank_mesh() as mesh:
+        restored, step = mgr.restore(_tree(), shardings=specs, mesh=mesh)
+    assert step == 5
+    _leaves_equal(restored, _tree())
 
 
 def test_restore_places_leaves_like_the_template(tmp_path):

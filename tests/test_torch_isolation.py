@@ -32,7 +32,7 @@ def test_import_loads_no_jax_and_no_reference_module():
         "repro_torch.launch.serve, repro_torch.tree, repro_torch.optim.adamw, "
         "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
         "repro_torch.distributed.fault_tolerance, repro_torch.train.adaptive, "
-        "repro_torch.launch.train\n"
+        "repro_torch.launch.train, repro_torch.launch.mesh, repro_torch.distributed.sharding\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
         "print(bad)\n"
     )
@@ -142,3 +142,39 @@ def test_training_driver_with_no_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--reduced", "--steps", "1"])
+
+
+def test_training_driver_on_a_mesh_with_no_card_raises(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--mesh", "data=1,model=1"])
+
+
+def test_nccl_on_the_cpu_raises_rather_than_falling_back_to_gloo():
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    with pytest.raises(ValueError, match="nccl backend needs a CUDA device"):
+        train.main(["--reduced", "--steps", "1", "--device", "cpu", "--mesh", "data=1,model=1",
+                    "--dist-backend", "nccl"])
+    assert not dist.is_initialized()
+
+
+def test_a_mesh_needs_a_process_group_of_its_size():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+
+    with pytest.raises(RuntimeError, match="initialise it first"):
+        Mesh((1, 1), ("data", "model"))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs a world of 256 ranks"):
+            make_production_mesh()
+        with pytest.raises(ValueError, match="needs a world of 512 ranks"):
+            make_production_mesh(multi_pod=True)
+    finally:
+        dist.destroy_process_group()

@@ -8,7 +8,6 @@ attention, the sliding-window blocks and the SSD scan are held at the
 layers' float32 atol = rtol = 1e-5.
 """
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -133,14 +132,24 @@ def test_ssd_chunked(S, chunk, with_h0):
 
 
 def test_a_group_raises_rather_than_running_on_one_device():
-    """Accepted difference: the mesh branches of the stack wait for the
-    training slice, and a ShardCtx with a group says so."""
+    """A ShardCtx with a mesh runs: on a one-rank (data=1, model=1) mesh,
+    forward and the MoE FFN equal ShardCtx()'s bit for bit (the name is
+    from when a group raised here)."""
+    from _torch_ranks import one_rank_mesh
+
     cfg = base.reduced(base.ARCHS["granite-moe-3b-a800m"])
     params = transformer.model_init(torch.Generator().manual_seed(0), cfg, device="cpu")
-    ctx = transformer.ShardCtx(group=SimpleNamespace(size=2, rank=0))
-    assert ctx.ep_shards == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        transformer.forward(params, cfg, torch.zeros(1, 4, dtype=torch.int32), ctx=ctx)
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        transformer._apply_ffn(transformer.group_params(params["blocks"], 0)["pos0"], cfg, x, ctx, {})
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))).int()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8, cfg.d_model))).float()
+    p0 = transformer.group_params(params["blocks"], 0)["pos0"]
+    want, want_stats = transformer.forward(params, cfg, tokens)
+    want_ffn, want_ffn_stats = transformer._apply_ffn(p0, cfg, x, transformer.ShardCtx(), {})
+    with one_rank_mesh() as mesh:
+        ctx = transformer.ShardCtx(mesh=mesh, axes=mesh.axis_names)
+        assert ctx.ep_shards == 1 and ctx.batch_axes == ("data",)
+        got, stats = transformer.forward(params, cfg, tokens, ctx=ctx)
+        got_ffn, ffn_stats = transformer._apply_ffn(p0, cfg, x, ctx, {})
+    assert torch.equal(got, want) and torch.equal(got_ffn, want_ffn)
+    for s_got, s_want in ((stats, want_stats), (ffn_stats, want_ffn_stats)):
+        assert set(s_got) == set(s_want)
+        assert all(torch.equal(torch.as_tensor(s_got[k]), torch.as_tensor(s_want[k])) for k in s_got)

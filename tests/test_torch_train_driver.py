@@ -117,5 +117,14 @@ def test_capacity_loop_equals_the_reference_driver(tmp_path, monkeypatch, capsys
 
 
 def test_mesh_raises_rather_than_running_on_one_device():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        train.main(["--reduced", "--steps", "1", "--device", "cpu", "--mesh", "data=1,model=1"])
+    """--mesh data=1,model=1 --device cpu trains on a one-rank mesh and
+    gives the single-device driver's losses (the name is from when --mesh
+    raised here)."""
+    import torch.distributed as dist
+
+    flags = ["--reduced", "--steps", "3", "--batch", "2", "--seq", "16", "--device", "cpu",
+             "--log-every", "100"]
+    want = train.main(flags)
+    got = train.main(flags + ["--mesh", "data=1,model=1"])
+    assert got == want
+    assert not dist.is_initialized()  # the driver took down the group it brought up
