@@ -239,6 +239,23 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_SKEW = 4, 4, "6.0"
 MESH_ONE_STEPS, MESH_LOSS_RTOL = 6, 1e-2
 MESH_RANKS, MESH_SPEC, MESH_LAYERS, MESH_STEPS = 4, "data=2,model=2", 4, 3
 MESH_CHECK_LAYERS, MESH_CHECK_RTOL, MESH_PROMPT, MESH_DECODE = 2, 1e-5, 64, 4
+# lm_tp: tensor parallelism over "model" and the split-K decode cache, four
+# gloo ranks on the one card, (data=1, model=4), qwen3-0.6b at full size.
+# (a) train --mesh at lm_train's batch, seq, lr and seed, 2 steps: step 1's
+# loss within 2e-2 relative of lm_train's (the same params and batch; bf16
+# partial sums combined over four ranks round differently, where a wrong
+# split moves the loss by whole units).  (b) prefill 128 tokens and 16
+# greedy decode steps at batch 8, the cache split over the ranks, against
+# one card's decode (the same tokens fed, lm_serve's bf16 bounds).  (c)
+# float32 at 2 layers, TF32 off: loss and gradient norm within 1e-6
+# relative of one rank's, decode logits within 1e-5 of the largest logit,
+# greedy tokens equal.  (d) each rank's card peak over a train step and a
+# decode step within 10 % of the dry-run's peak_bytes_per_device for the
+# same mesh, shape and rank (fake CUDA tensors).
+TP_RANKS, TP_SPEC, TP_STEPS, TP_LOSS_RTOL = 4, "data=1,model=4", 2, 2e-2
+TP_CHECK_LAYERS, TP_CHECK_RTOL, TP_CHECK_LOGITS = 2, 1e-6, 1e-5
+TP_MEMORY_SHARE = 0.10
+DRYRUN_JOBS = 8  # dryrun: the pod sweep's cells traced at once
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
     "block_sort": f"{PALLAS}:88",
@@ -1734,7 +1751,7 @@ def _mesh_check(f32: str, batch_size: int, seq: int, device) -> dict:
         report = {"mesh": loss_and_norm(shard_tree(full, specs, mesh),
                                         shard_tree(whole, batch_specs(whole), mesh), ctx, specs,
                                         batch_size * seq // mesh.size)}
-        compute = shard_tree(full, compute_specs(param_specs(full)), mesh)
+        compute = shard_tree(full, compute_specs(param_specs(full), cfg, 2), mesh)
         rows = shard_tree(whole, batch_specs(whole), mesh)["tokens"][:, :MESH_PROMPT]
         report["mesh_greedy"] = greedy(compute, rows.contiguous(), ctx)
         del compute
@@ -1890,6 +1907,358 @@ def phase_lm_mesh(kernels, device, lm_train: dict) -> dict:
         "kernel_launches": launches}
 
 
+def _measured_train_step(real, log: list, last: dict, records: list):
+    """``_timed_train_step`` that also reads the card's peak over the step
+    (less what the process holds besides the step's arguments, so it reads
+    what the dry-run traces) and counts the step's collectives."""
+    from repro_torch.exchange.group import CollectiveCounter
+    from repro_torch.launch.dryrun import storage_bytes
+
+    timed = _timed_train_step(real, log, last)
+
+    def measured(params, opt, batch, **kw):
+        torch.cuda.synchronize()
+        other = torch.cuda.memory_allocated() - storage_bytes(params, opt, batch)
+        torch.cuda.reset_peak_memory_stats()
+        with CollectiveCounter() as coll:
+            out = timed(params, opt, batch, **kw)
+        records.append({"card_peak_bytes": torch.cuda.max_memory_allocated() - other,
+                        "other_bytes": other, "collectives": coll.record(),
+                        "loss_chunk": kw["loss_chunk"], "n_microbatch": kw["n_microbatch"],
+                        "state_dtype": kw["opt_cfg"].state_dtype,
+                        "batch": {k: list(v.shape) for k, v in batch.items()}})
+        return out
+
+    return measured
+
+
+def _tp_decode(cfg, mesh, device, prompt_len: int, gen: int, measure: bool) -> dict:
+    """Prefill ``prompt_len`` tokens and ``gen`` greedy steps of ``cfg``
+    (random weights from seed 0) at batch LM_BATCH: one card's decode, then
+    the mesh's with the cache split over "model" and one card's tokens fed
+    (each step's logits compared on the same inputs).  With ``measure``
+    the mesh's first decode step reads the card's peak (as
+    ``_measured_train_step``) and counts its collectives."""
+    from repro_torch.distributed.sharding import compute_specs, param_specs, shard_tree
+    from repro_torch.exchange.group import CollectiveCounter
+    from repro_torch.launch.dryrun import storage_bytes
+    from repro_torch.models.transformer import ShardCtx, model_init
+    from repro_torch.train.steps import prefill_step, serve_decode_step
+
+    model = mesh.shape["model"]
+    full = model_init(torch.Generator(device=device).manual_seed(0), cfg, ep_shards=model,
+                      device=device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, prompt_len))).to(device=device, dtype=torch.int32)
+    cache_len = prompt_len + gen
+    out = {"one": {"logits": []}, "mesh": {"logits": [], "tokens": [], "ms": []}}
+    with torch.no_grad():
+        last, cache = prefill_step(full, cfg, prompts, cache_len=cache_len)
+        one_bytes = sum(c.k.nbytes + c.v.nbytes for c in cache.values())
+        nxt, tokens = torch.argmax(last, -1), []
+        out["one"]["logits"].append(last.float())
+        for _ in range(gen):
+            tokens.append(nxt)
+            lg, cache = serve_decode_step(full, cfg, nxt[:, None].int(), cache)
+            out["one"]["logits"].append(lg[:, 0].float())
+            nxt = torch.argmax(lg[:, 0], -1)
+        del cache
+        ctx = ShardCtx(mesh=mesh, axes=mesh.axis_names)
+        params = shard_tree(full, compute_specs(param_specs(full), cfg, model), mesh)
+        del full
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill_step(params, cfg, prompts, ctx=ctx, cache_len=cache_len)
+        torch.cuda.synchronize()
+        out["mesh"]["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["mesh"]["cache_bytes"] = sum(c.k.nbytes + c.v.nbytes for c in cache.values())
+        out["one"]["cache_bytes"] = one_bytes
+        out["mesh"]["logits"].append(last.float())
+        for i, tok in enumerate(tokens):
+            other = None
+            if measure and i == 0:
+                torch.cuda.synchronize()
+                other = torch.cuda.memory_allocated() - storage_bytes(params, tok, cache)
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CollectiveCounter() as coll:
+                lg, cache = serve_decode_step(params, cfg, tok[:, None].int(), cache, ctx=ctx)
+            torch.cuda.synchronize()
+            out["mesh"]["ms"].append((time.perf_counter() - t0) * 1e3)
+            if other is not None:
+                out["mesh"]["card_peak_bytes"] = torch.cuda.max_memory_allocated() - other
+                out["mesh"]["other_bytes"] = other
+                out["mesh"]["collectives"] = coll.record()
+            out["mesh"]["logits"].append(lg[:, 0].float())
+            out["mesh"]["tokens"].append(torch.argmax(lg[:, 0], -1))
+        out["one"]["tokens"] = tokens[1:] + [nxt]
+    return out
+
+
+def _tp_compare(label: str, got: dict, bf16: bool) -> dict:
+    """The mesh's decode against one card's: every step's logits (bf16:
+    lm_serve's bounds; float32: TP_CHECK_LOGITS of the largest logit) and
+    the greedy tokens."""
+    steps = []
+    for i, (a, b) in enumerate(zip(got["mesh"]["logits"], got["one"]["logits"])):
+        if bf16:
+            steps.append(_logits_check(f"{label} step {i}", a, b))
+        else:
+            err, bound = max_abs_err(a, b), TP_CHECK_LOGITS * float(b.abs().max())
+            check(err <= bound, f"{label} step {i}: logits off one card's ({err:.3g} > {bound:.3g})")
+            steps.append({"max_abs_err": err, "bound": bound})
+    same = all(torch.equal(a, b) for a, b in zip(got["mesh"]["tokens"], got["one"]["tokens"]))
+    check(same, f"{label}: greedy tokens differ from one card's")
+    return {"steps": len(steps), "worst_rel_l2": max(s.get("rel_l2", 0.0) for s in steps),
+            "worst_max_abs_err": max(s["max_abs_err"] for s in steps),
+            "greedy_tokens_equal": same}
+
+
+def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "cuda") -> None:
+    """One rank of phase lm_tp: train --mesh data=1,model=4 at qwen3-0.6b's
+    full size, then the bf16 decode at full size and the float32 check at
+    TP_CHECK_LAYERS layers, each against one card's."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import fit_tree, param_specs, shard_tree, batch_specs
+    from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import ShardCtx, model_init
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.steps import loss_fn
+    from repro_torch.tree import from_paths, paths
+
+    device = torch.device(device_type)
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        kernels.reset_launch_counts()
+        log, last, steps = [], {}, []
+        t0 = time.perf_counter()
+        losses, out = _run_train(
+            train, ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                    "--steps", str(TP_STEPS), "--lr", TRAIN_LR, "--log-every", "1",
+                    "--mesh", TP_SPEC, "--dist-backend", "gloo", "--device", device_type],
+            lambda real: _measured_train_step(real, log, last, steps))
+        report = {"rank": rank, "losses": losses, "seconds": time.perf_counter() - t0,
+                  "ms_per_step": [s["ms"] for s in log], "grad_norms": [s["grad_norm"] for s in log],
+                  "param_bytes": _nbytes(last["params"]),
+                  "moment_bytes": _nbytes(last["opt"]["m"], last["opt"]["v"]), "train": steps}
+        last.clear()
+        torch.cuda.empty_cache()
+        mesh = Mesh((1, TP_RANKS), ("data", "model"))
+        report["coords"] = mesh.coords
+        cfg = ARCHS[LM_ARCH]
+        dec = _tp_decode(cfg, mesh, device, LM_PROMPT, LM_GEN, measure=True)
+        report["decode"] = {"compare": _tp_compare("lm_tp decode", dec, bf16=True),
+                            **{k: v for k, v in dec["mesh"].items() if k not in ("logits", "tokens")},
+                            "one_card_cache_bytes": dec["one"]["cache_bytes"]}
+        del dec
+        torch.cuda.empty_cache()
+        # (c) float32 at TP_CHECK_LAYERS layers, TF32 off
+        f32 = replace(cfg, name=f"{LM_ARCH}-{TP_CHECK_LAYERS}l-f32", n_layers=TP_CHECK_LAYERS,
+                      param_dtype=torch.float32, compute_dtype=torch.float32)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            full = model_init(torch.Generator(device=device).manual_seed(0), f32,
+                              ep_shards=TP_RANKS, device=device)
+            b = SyntheticLM(f32.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)._batch_at(0)
+            whole = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+            def loss_and_norm(params, batch, ctx, specs):
+                pairs = list(paths(params))
+                leaves = [t.detach().requires_grad_(True) for _, t in pairs]
+                loss, _ = loss_fn(from_paths((p, t) for (p, _), t in zip(pairs, leaves)), f32,
+                                  batch, ctx=ctx, loss_chunk=64, specs=specs)
+                grads = from_paths((p, g) for (p, _), g in
+                                   zip(pairs, torch.autograd.grad(loss, leaves)))
+                return {"loss": float(loss.detach()),
+                        "grad_norm": float(global_norm(grads, specs, ctx.mesh))}
+
+            ctx = ShardCtx(mesh=mesh, axes=mesh.axis_names)
+            specs = fit_tree(param_specs(full), full, mesh)
+            check_report = {"mesh": loss_and_norm(shard_tree(full, specs, mesh),
+                                                  shard_tree(whole, batch_specs(whole), mesh), ctx,
+                                                  specs),
+                            "one_rank": loss_and_norm(full, whole, ShardCtx(), None)}
+            del full, whole
+            dec = _tp_decode(f32, mesh, device, 64, 8, measure=False)
+            check_report["decode"] = _tp_compare("lm_tp float32 decode", dec, bf16=False)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        report["check"] = check_report
+        report["kernel_launches"] = {k: v for k, v in kernels.launch_counts().items() if v}
+        with open(f"{result}.{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_dryrun(rank: int, device_type: str, train_kw: dict) -> dict:
+    """The dry-run of lm_tp's train step and first decode step as ``rank``
+    of a fake (data=1, model=4) world, on fake tensors of ``device_type``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.optim.adamw import OptConfig
+
+    cfg = ARCHS[LM_ARCH]
+    device = torch.device(device_type)
+    out = {}
+    with dryrun.fake_world(TP_RANKS, rank):
+        mesh = Mesh((1, TP_RANKS), ("data", "model"))
+        for kind in ("train", "decode"):
+            mode = FakeTensorMode()
+            if kind == "train":
+                inputs = {k: torch.empty(shape, dtype=torch.int32, device="meta")
+                          for k, shape in train_kw["batch"].items()}
+                cell = dryrun.build_cell(cfg, "train", inputs, mesh, device, mode,
+                                         n_microbatch=train_kw["n_microbatch"],
+                                         loss_chunk=train_kw["loss_chunk"],
+                                         opt_cfg=OptConfig(state_dtype=train_kw["state_dtype"]))
+            else:
+                inputs = {"tokens": torch.empty((LM_BATCH, 1), dtype=torch.int32, device="meta")}
+                cache = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device="meta")
+                cell = dryrun.build_cell(cfg, "decode", inputs, mesh, device, mode, cache=cache)
+            rec = dryrun.trace(*cell[:2], mode)
+            out[kind] = {"memory": rec["memory"], "collectives": rec["collectives"],
+                         "flops": rec["cost"]["flops"], "trace_s": rec["trace_s"]}
+    return out
+
+
+def phase_lm_tp(kernels, device, lm_train: dict) -> dict:
+    """Four gloo ranks on the card train, prefill and decode qwen3-0.6b with
+    its heads, FFN and decode cache split over "model"; then the dry-run of
+    the same steps, each rank against its card readings."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    work = os.path.join(ROOT, "build", "lm_tp")
+    os.makedirs(work, exist_ok=True)
+    store, result = os.path.join(work, f"store.{os.getpid()}"), os.path.join(work, "result")
+    for path in [store] + [f"{result}.{r}.json" for r in range(TP_RANKS)]:
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    _spawn(tp_rank, (TP_RANKS, store, result), TP_RANKS)
+    seconds = time.perf_counter() - t0
+    reports = []
+    for r in range(TP_RANKS):
+        with open(f"{result}.{r}.json") as f:
+            reports.append(json.load(f))
+    r0 = reports[0]
+    # (a) train --mesh
+    check(all(rep["losses"] == r0["losses"] for rep in reports), "lm_tp: the ranks' losses differ")
+    check(len(r0["losses"]) == TP_STEPS and all(np.isfinite(r0["losses"] + r0["grad_norms"])),
+          f"lm_tp: losses {r0['losses']}")
+    want = lm_train["full_size"]["losses"][0]
+    rel = abs(r0["losses"][0] - want) / abs(want)
+    check(rel <= TP_LOSS_RTOL, f"lm_tp: step-1 loss {r0['losses'][0]} against lm_train's {want}")
+    launches = {}
+    for rep in reports:
+        for k, v in rep["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check(not launches, f"lm_tp: the TP path launched sort kernels {launches}")
+    # (b) the split cache holds a quarter of one card's
+    for rep in reports:
+        d = rep["decode"]
+        check(d["cache_bytes"] * TP_RANKS == d["one_card_cache_bytes"],
+              f"lm_tp rank {rep['rank']}: cache {d['cache_bytes']} of {d['one_card_cache_bytes']}")
+    # (c) float32 against one rank
+    mesh_m, one_m = r0["check"]["mesh"], r0["check"]["one_rank"]
+    check(all(rep["check"]["mesh"] == mesh_m for rep in reports),
+          "lm_tp check: the ranks' numbers differ")
+    rel_check = {k: abs(mesh_m[k] - one_m[k]) / abs(one_m[k]) for k in ("loss", "grad_norm")}
+    check(all(v <= TP_CHECK_RTOL for v in rel_check.values()),
+          f"lm_tp check: mesh {mesh_m} against one rank {one_m}")
+    # (d) the dry-run of the same steps, one process a rank
+    t1 = time.perf_counter()
+    with ProcessPoolExecutor(TP_RANKS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        traced = list(pool.map(tp_dryrun, range(TP_RANKS), [device.type] * TP_RANKS,
+                               [rep["train"][0] for rep in reports]))
+    dryrun_seconds = time.perf_counter() - t1
+    memory = []
+    for rep, tr in zip(reports, traced):
+        row = {"rank": rep["rank"]}
+        for kind, card in (("train", rep["train"][-1]), ("decode", rep["decode"])):
+            want_b = tr[kind]["memory"]["peak_bytes_per_device"]
+            got_b = card["card_peak_bytes"]
+            share = abs(got_b - want_b) / want_b
+            check(share <= TP_MEMORY_SHARE,
+                  f"lm_tp rank {rep['rank']} {kind}: card peak {got_b} against the dry-run's {want_b}")
+            check(card["collectives"] == tr[kind]["collectives"],
+                  f"lm_tp rank {rep['rank']} {kind}: counted collectives differ from the dry-run's")
+            row[kind] = {"card_peak_bytes": got_b, "dryrun_peak_bytes": want_b,
+                         "off_by_share": (got_b - want_b) / want_b, "other_bytes": card["other_bytes"],
+                         "collective_bytes": card["collectives"]["total_bytes"],
+                         "collective_counts": card["collectives"]["counts"],
+                         "dryrun_flops": tr[kind]["flops"], "trace_s": tr[kind]["trace_s"]}
+        memory.append(row)
+    return {
+        "arch": LM_ARCH, "mesh": TP_SPEC, "ranks": TP_RANKS,
+        "backend": "gloo (host-staged CUDA tensors; times are not TP over NCCL)",
+        "train": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TP_STEPS, "losses": r0["losses"],
+                  "grad_norms": r0["grad_norms"], "step1_loss_rel_to_lm_train": rel,
+                  "tolerance": TP_LOSS_RTOL, "ms_per_step_rank0": r0["ms_per_step"],
+                  "rank_bytes": [{"params": rep["param_bytes"], "moments": rep["moment_bytes"]}
+                                 for rep in reports]},
+        "decode": {"batch": LM_BATCH, "prompt": LM_PROMPT, "tokens": LM_GEN,
+                   "prefill_ms_rank0": r0["decode"]["prefill_ms"],
+                   "ms_per_token_rank0": r0["decode"]["ms"],
+                   "cache_bytes_rank": r0["decode"]["cache_bytes"],
+                   "cache_bytes_one_card": r0["decode"]["one_card_cache_bytes"],
+                   "compare": r0["decode"]["compare"], "tolerance": LOGIT_TOLERANCE},
+        "float32_check": {"layers": TP_CHECK_LAYERS, "tf32": False, "mesh": mesh_m,
+                          "one_rank": one_m, "rel": rel_check, "tolerance": TP_CHECK_RTOL,
+                          "decode": r0["check"]["decode"], "logits_tolerance": TP_CHECK_LOGITS},
+        "memory_vs_dryrun": memory, "memory_tolerance": TP_MEMORY_SHARE,
+        "dryrun_seconds": dryrun_seconds, "ranks_seconds": seconds,
+        "kernel_launches": launches}
+
+
+def phase_dryrun() -> dict:
+    """``python -m repro_torch.launch.dryrun --all --mesh pod`` (fake CUDA
+    tensors) in a subprocess: every applicable cell must print OK."""
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh",
+                           "pod", "--out", out_dir, "--jobs", str(DRYRUN_JOBS)],
+                          env=env, capture_output=True, text=True, timeout=900, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    print(proc.stdout + proc.stderr[-4000:], file=sys.stderr, flush=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln[:4] in ("OK  ", "SKIP", "FAIL")]
+    check(proc.returncode == 0 and not any(ln.startswith("FAIL") for ln in lines),
+          f"dryrun: exit {proc.returncode}: {[ln for ln in lines if ln.startswith('FAIL')]}")
+    from repro_torch.configs.base import all_cells
+
+    cells = {}
+    for arch, shape in all_cells():
+        with open(os.path.join(out_dir, f"{arch}__{shape}__pod.json")) as f:
+            rec = json.load(f)
+        cells[f"{arch} {shape}"] = {
+            "peak_gib": rec["memory"]["peak_bytes_per_device"] / 2**30,
+            "argument_gib": rec["memory"]["argument_bytes_per_device"] / 2**30,
+            "tflops": rec["cost"]["flops"] / 1e12,
+            "collective_gib": rec["collectives"]["total_bytes"] / 2**30,
+            "trace_s": rec["lower_s"], "notes": rec["notes"]}
+    over = sorted(k for k, v in cells.items() if v["peak_gib"] * 2**30 > 80e9)
+    return {"mesh": "pod (data=16, model=16), rank 0", "device": "fake cuda", "jobs": DRYRUN_JOBS,
+            "seconds": seconds, "cells": cells, "lines": len(lines),
+            "over_80gb": over, "skipped": [ln for ln in lines if ln.startswith("SKIP")]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this script needs one card")
@@ -2025,7 +2394,9 @@ def main() -> None:
                          ("lm_moe", lambda: phase_lm_moe(device)),
                          ("moe_serve", lambda: phase_moe_serve(device)),
                          ("lm_train", lambda: phase_lm_train(kernels, device)),
-                         ("lm_mesh", lambda: phase_lm_mesh(kernels, device, results["lm_train"]))):
+                         ("lm_mesh", lambda: phase_lm_mesh(kernels, device, results["lm_train"])),
+                         ("lm_tp", lambda: phase_lm_tp(kernels, device, results["lm_train"])),
+                         ("dryrun", phase_dryrun)):
         print(smi, flush=True)
         t0 = time.perf_counter()
         results[label] = phase()

@@ -14,22 +14,37 @@ the gathers.  Here every rank is a process that holds its own block:
 * ``shard_tree`` cuts this rank's block of every leaf (``fit_spec`` drops
   the axes that do not divide a dim, as the reference's does), and
   ``unshard_tree`` puts the whole leaves back together (a collective);
-* ``compute_specs`` is the layout the model stack computes in, the
-  reference's ``shard_map`` view: the embedding table vocab-sharded over
-  "model", every expert stack expert-sharded over "model", the rest whole;
+* ``compute_specs`` is the layout the model stack computes in: the stored
+  spec without its batch axes, which FSDP gathers.  "model" stays where
+  the stored spec has it: the embedding table vocab-sharded, the expert
+  stacks expert-sharded, and Megatron tensor parallelism in the dense
+  layers: ``wq`` / ``wk`` / ``wv`` / ``w_in`` / ``w_gate`` (and their
+  biases) column-parallel, ``wo`` / ``w_out`` row-parallel.  Three
+  exceptions (``tp_layout``): where the heads do not divide "model"
+  (qwen2-7b's 28 at 16, the case the reference pins apart,
+  ``repro/models/transformer.py:439``) the attention weights are gathered
+  whole and every rank of a model group runs every head; where the KV
+  heads do not divide it (GQA with fewer KV heads than ranks) ``wk`` /
+  ``wv`` are gathered whole and each rank slices the KV heads its query
+  heads read; Mamba-2 blocks are gathered whole (their split over "model"
+  is queued);
 * ``gather_leaf`` takes a leaf from its stored block to its compute
   layout (an all-gather over the axes it is stored over but not computed
   over), and in the backward reduces the gradient back to the block: a
   reduce-scatter over a batch axis the leaf is stored over, a sum over a
-  batch axis it is replicated over, a slice over "model" (the residual
-  stream is replicated there, so every model rank holds the whole
-  gradient), except for the router, which routes each model rank's own
-  tokens, so its gradient is summed over "model" too.
+  batch axis it is replicated over.  A leaf computed split over "model"
+  gets its own block's gradient there.  A leaf gathered whole over
+  "model" whose every rank computes the same thing (the whole-heads
+  attention, Mamba) holds the whole gradient on each rank and keeps its
+  slice; one whose ranks each compute their own share (the router, on
+  each rank's own tokens; under split heads the qk-norm scales and whole
+  ``wk`` / ``wv``, on each rank's heads) is summed over "model" and
+  reduce-scattered back.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -43,12 +58,15 @@ __all__ = [
     "gather_leaf",
     "gather_tree",
     "map_with_path",
+    "mesh_cache_specs",
     "opt_state_specs",
     "param_specs",
     "replication",
     "shard_tree",
     "spec_axes",
+    "tp_layout",
     "unshard_tree",
+    "TPLayout",
 ]
 
 
@@ -175,6 +193,33 @@ def cache_specs(cache, cfg) -> Any:
     return map_with_path(one, cache)
 
 
+def _without(entry, axis):
+    """A spec entry without ``axis``."""
+    kept = tuple(a for a in spec_axes(entry) if a != axis)
+    return kept if len(kept) > 1 else (kept[0] if kept else None)
+
+
+def mesh_cache_specs(cache, cfg, mesh, ep_axis: str = "model") -> Any:
+    """The layout the port's mesh decode keeps its cache in, fitted to the
+    (whole) cache: ``cache_specs``'s, attention caches' positions split
+    over ``ep_axis`` (split-K) and their rows over the batch axes; Mamba
+    states keep only the batch split (their heads over "model" are
+    queued).  Raises ``ValueError`` where an attention cache's length does
+    not divide ``ep_axis``: the port's mesh decode always splits positions
+    (every cell of ``configs.base`` divides)."""
+    specs = fit_tree(cache_specs(cache, cfg), cache, mesh)
+
+    def one(path, leaf, spec):
+        if not cfg.pattern[int(path[0][3:])].startswith("attn"):
+            return tuple(_without(e, ep_axis) for e in spec)
+        if _ndim(leaf) == 5 and ep_axis not in spec_axes(spec[2]) and mesh.shape[ep_axis] > 1:
+            raise ValueError(f"{path}: a cache of {leaf.shape[2]} positions does not split over "
+                             f"{ep_axis}={mesh.shape[ep_axis]}")
+        return spec
+
+    return map_with_path(one, cache, specs)
+
+
 def batch_specs(batch: dict) -> Any:
     """Input batch: the leading (global batch) dim over ("pod", "data")."""
     return map_with_path(lambda _, leaf: (("pod", "data"),) + (None,) * (_ndim(leaf) - 1), batch)
@@ -205,12 +250,61 @@ def fit_tree(specs, tree, mesh) -> Any:
     return map_with_path(lambda _, leaf, s: fit_spec(tuple(leaf.shape), s, mesh), tree, specs)
 
 
-def compute_specs(specs, ep_axis: str = "model") -> Any:
-    """The layout the model stack computes in: ``ep_axis`` kept on the
-    embedding table and the expert stacks, every other entry replicated."""
+class TPLayout(NamedTuple):
+    """What a dense layer splits over "model" (module docstring)."""
+    heads: bool       # attention heads: wq / wo column / row-parallel
+    kv_heads: bool    # wk / wv too (else gathered whole)
+    ffn: bool         # the dense FFN's hidden units
+
+
+def tp_layout(cfg, model: int) -> TPLayout:
+    """The tensor-parallel layout of ``cfg`` over a "model" axis of
+    ``model`` ranks: a split wherever it divides.
+
+    >>> from repro_torch.configs.base import ARCHS
+    >>> tp_layout(ARCHS["qwen3-0.6b"], 16), tp_layout(ARCHS["qwen2-7b"], 16).heads
+    (TPLayout(heads=True, kv_heads=False, ffn=True), False)
+    """
+    heads = cfg.n_heads > 0 and cfg.n_heads % model == 0
+    return TPLayout(heads, heads and cfg.n_kv_heads % model == 0,
+                    cfg.d_ff > 0 and cfg.d_ff % model == 0)
+
+
+def _layer(path) -> str:
+    """The linear a leaf belongs to (``wq`` for ``.../wq/w``), else its name."""
+    return path[-2] if path[-1] in ("w", "b") and len(path) > 1 else path[-1]
+
+
+def _split_over_model(path, tp: TPLayout) -> bool:
+    if "table" in path or ("moe" in path and path[-1] in ("w_in", "w_gate", "w_out")):
+        return True
+    if "attn" in path:
+        return tp.heads and (_layer(path) in ("wq", "wo")
+                             or (tp.kv_heads and _layer(path) in ("wk", "wv")))
+    return "ffn" in path and tp.ffn
+
+
+def _sums_over_model(path, tp: TPLayout) -> bool:
+    """Leaves held whole over "model" whose ranks each compute their own
+    share, so their gradient sums there: the router; under split heads the
+    qk-norms and whole wk / wv."""
+    if "router" in path:
+        return True
+    if "attn" not in path or not tp.heads:
+        return False
+    return "q_norm" in path or "k_norm" in path or (not tp.kv_heads
+                                                    and _layer(path) in ("wk", "wv"))
+
+
+def compute_specs(specs, cfg, model: int, ep_axis: str = "model") -> Any:
+    """The layout the model stack computes in (module docstring): ``specs``
+    without their batch axes, ``ep_axis`` kept on the leaves that
+    ``tp_layout(cfg, model)`` splits over it."""
+    tp = tp_layout(cfg, model)
+
     def one(path, spec):
-        consumed = "table" in path or ("moe" in path and path[-1] in ("w_in", "w_gate", "w_out"))
-        return tuple(e if consumed and spec_axes(e) == (ep_axis,) else None for e in spec)
+        keep = _split_over_model(path, tp)
+        return tuple(e if keep and spec_axes(e) == (ep_axis,) else None for e in spec)
 
     return map_with_path(one, specs)
 
@@ -337,16 +431,20 @@ def gather_leaf(block: torch.Tensor, stored: tuple, compute: tuple, mesh, *,
     return _GatherLeaf.apply(block, plan)
 
 
-def gather_tree(tree, stored_specs, mesh, *, ep_axis: str = "model") -> Any:
-    """Every leaf of ``tree`` (stored blocks) in the compute layout,
-    through ``gather_leaf``.  The routers' gradients sum over ``ep_axis``."""
-    cspecs = compute_specs(stored_specs, ep_axis)
+def gather_tree(tree, stored_specs, mesh, cfg, *, ep_axis: str = "model") -> Any:
+    """Every leaf of ``tree`` (stored blocks) in the compute layout of
+    ``cfg``, through ``gather_leaf``; the gradients of the leaves whose
+    ranks each compute their own share sum over ``ep_axis`` (module
+    docstring)."""
+    model = mesh.shape.get(ep_axis, 1)
+    cspecs = compute_specs(stored_specs, cfg, model, ep_axis)
+    tp = tp_layout(cfg, model)
 
     def one(path, leaf, stored, compute):
         if not isinstance(leaf, torch.Tensor):
             return leaf
         return gather_leaf(leaf, stored, compute, mesh, ep_axis=ep_axis,
-                           sum_ep="router" in path)
+                           sum_ep=_sums_over_model(path, tp))
 
     return map_with_path(one, tree, stored_specs, cspecs)
 

@@ -28,6 +28,17 @@ whole gradient on every rank of it.
   blocks along ``dim``, backward this rank's block;
 * ``split_to(group, t, dim)``: forward this rank's block, backward the
   concatenation.
+
+``CollectiveCounter`` records the collectives this process makes while it
+is open (``with CollectiveCounter() as c: ...``): each call adds its kind
+and the bytes of its result on this rank, the convention of the
+reference's dry-run, which reads each collective's result shape off the
+optimized HLO (``repro/launch/dryrun.py:_line_bytes``).  The kinds are the
+reference's five: ``all-reduce`` (``psum``, ``pmax``, ``pmin``),
+``all-gather``, ``reduce-scatter``, ``all-to-all`` and
+``collective-permute``; a ``broadcast`` (which the reference's steps do
+not make) is recorded under its own name.  With no counter open nothing
+is recorded.
 """
 from __future__ import annotations
 
@@ -36,7 +47,52 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["AxisGroup", "as_axis_group", "copy_to", "gather_from", "reduce_from", "split_to"]
+__all__ = ["COLLECTIVES", "AxisGroup", "CollectiveCounter", "as_axis_group", "copy_to",
+           "gather_from", "reduce_from", "split_to"]
+
+# the gather into one tensor (named all_gather_into_tensor before torch 2.13)
+_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+_OPEN: list = []  # the counters open now, innermost last
+
+
+class CollectiveCounter:
+    """Counts and result bytes of the collectives made while it is open,
+    by kind (module docstring).  Counters nest: each open one records.
+
+    >>> import torch.distributed as dist
+    >>> dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    >>> with CollectiveCounter() as c:
+    ...     _ = AxisGroup().psum(torch.zeros(4))
+    >>> c.record()["bytes"]["all-reduce"], c.record()["counts"]["all-reduce"]
+    (16, 1)
+    >>> dist.destroy_process_group()
+    """
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(COLLECTIVES, 0)
+        self.counts = dict.fromkeys(COLLECTIVES, 0)
+
+    def __enter__(self) -> "CollectiveCounter":
+        _OPEN.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _OPEN.remove(self)
+
+    def record(self) -> dict:
+        """``{"bytes", "counts", "total_bytes"}``, the reference dry-run's
+        ``collectives`` record."""
+        return {"bytes": dict(self.bytes), "counts": dict(self.counts),
+                "total_bytes": sum(self.bytes.values())}
+
+
+def _record(kind: str, result: torch.Tensor) -> None:
+    if _OPEN:
+        nbytes = result.numel() * result.element_size()
+        for c in _OPEN:
+            c.bytes[kind] = c.bytes.get(kind, 0) + nbytes
+            c.counts[kind] = c.counts.get(kind, 0) + 1
 
 
 class _AllToAll(torch.autograd.Function):
@@ -48,6 +104,7 @@ class _AllToAll(torch.autograd.Function):
         src = t.contiguous()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=group.group)
+        _record("all-to-all", out)
         return out
 
     @staticmethod
@@ -81,6 +138,7 @@ class AxisGroup:
             raise TypeError("reduce a bool as an integer: not every backend reduces bool")
         out = t.clone()
         dist.all_reduce(out, op=op, group=self.group)
+        _record("all-reduce", out)
         return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
@@ -100,23 +158,29 @@ class AxisGroup:
         out = t.clone()
         src = root if self.group is None else dist.get_global_rank(self.group, root)
         dist.broadcast(out, src=src, group=self.group)
+        _record("broadcast", out)
         return out
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked in rank order: shape ``(P, *t.shape)``
-        (``jax.lax.all_gather``).  The list form, which NCCL and gloo both
-        take."""
-        src = t.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src, group=self.group)
-        return torch.stack(parts)
+        (``jax.lax.all_gather``).  One gather into a single tensor, whose
+        blocks along dim 0 NCCL and gloo both fill."""
+        src = t.contiguous().reshape((1,) + tuple(t.shape))
+        out = torch.empty((self.size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+        _gather_into(out, src, group=self.group)
+        _record("all-gather", out)
+        return out
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The ranks' blocks concatenated along ``dim`` in rank order
         (``jax.lax.all_gather(..., axis=dim, tiled=True)``)."""
         if self.size == 1:
             return t
-        return torch.cat(self.all_gather(t).unbind(0), dim=dim)
+        stacked = self.all_gather(t)
+        if dim == 0:
+            return stacked.reshape((-1,) + tuple(t.shape[1:]))
+        shape = tuple(t.shape)
+        return stacked.movedim(0, dim).reshape(shape[:dim] + (-1,) + shape[dim + 1:])
 
     def split(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's block of ``t`` along ``dim`` (no communication)."""
@@ -138,7 +202,9 @@ class AxisGroup:
         src = parts.contiguous()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.group)
-        return out.sum(dim=0)
+        out = out.sum(dim=0)
+        _record("reduce-scatter", out)
+        return out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Row ``j`` of the result is row ``rank`` of what rank ``j`` sent:
@@ -170,6 +236,7 @@ class AxisGroup:
             input_split_sizes=[numel if [j] == dst else 0 for j in range(self.size)],
             group=self.group,
         )
+        _record("collective-permute", out)
         if not src:
             return torch.zeros_like(t)
         return out.view(t.shape)

@@ -1,1 +1,1 @@
-"""Drivers (torch): serving, training on one device or a mesh, and named meshes; the dry-run waits."""
+"""Entry points (torch): serving, training on one device or a mesh, named meshes, and the production-mesh dry-run on fake tensors."""

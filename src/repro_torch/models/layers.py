@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.carry import check_device
+from repro_torch.exchange.group import copy_to, reduce_from
 
 __all__ = [
     "Params",
@@ -114,13 +115,20 @@ def mlp_init(gen, d_model: int, d_ff: int, dtype, *, gated: bool = True, device=
     return p
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, group=None) -> torch.Tensor:
+    """SwiGLU (or GELU) FFN.  With ``group`` (an ``AxisGroup``) the hidden
+    units are split over it, Megatron's way: ``w_in`` / ``w_gate`` hold
+    this rank's columns, ``w_out`` its rows; the partial outputs are summed
+    over the group and the input's gradient too."""
+    if group is not None:
+        x = copy_to(group, x)
     h = linear(p["w_in"], x)
     if "w_gate" in p:
         h = F.silu(linear(p["w_gate"], x)) * h  # SwiGLU
     else:
         h = gelu(h)
-    return linear(p["w_out"], h)
+    out = linear(p["w_out"], h)
+    return out if group is None else reduce_from(group, out)
 
 
 # -------------------------------------------------------------- Embedding ---

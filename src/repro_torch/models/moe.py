@@ -240,8 +240,11 @@ def moe_apply_ep_replicated(
 
     order = torch.argsort(bucket, stable=True)
     sorted_b = bucket[order]
-    counts = torch.bincount(bucket, minlength=e_loc + 1).to(torch.int32)
-    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    # the bincount read off the sorted ids: its length is static (a traced step has no data)
+    starts = torch.searchsorted(sorted_b, torch.arange(e_loc + 2, dtype=sorted_b.dtype,
+                                                       device=device)).to(torch.int32)
+    counts = starts[1:] - starts[:-1]
+    offsets = starts[:-1]
     pos = torch.arange(m, dtype=torch.int32, device=device) - offsets[sorted_b.long()]
     valid = (pos < cap) & (sorted_b < e_loc)
     slot_sorted = torch.where(valid, sorted_b * cap + pos, e_loc * cap).long()

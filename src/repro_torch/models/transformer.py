@@ -17,18 +17,25 @@ Every block is pre-norm residual: x += Block(RMSNorm(x)); FFN likewise.
 ``ShardCtx`` names a mesh (``repro_torch.launch.mesh.Mesh``) for the
 stack's mesh branches, run as explicit SPMD: every rank a process, its
 batch rows split over the batch axes (every axis but ``ep_axis``) and the
-residual stream replicated over ``ep_axis``, so attention, Mamba and dense
-FFNs run whole heads on each rank of a model group.  Params come in the
-compute layout (``distributed.sharding.compute_specs``): the embedding
-table vocab-sharded over ``ep_axis`` (the vocab-parallel embedding and
-logits), every expert stack expert-sharded over it.  An MoE FFN takes each
-model rank's contiguous share of the data shard's tokens into
-``moe_apply_local`` (model D's all_to_all) and gathers the outputs back,
-for train and prefill; decode replicates the tokens over the group and
-sums each rank's experts' outputs.  The reference's sharding pins
-(``constrain_batch``, ``constrain_spec``) are placement hints with no
-numeric effect, identities here.  ``model_init`` and ``init_cache`` place
-their tensors on ``device``, the card by default.
+residual stream replicated over ``ep_axis``.  Params come in the compute
+layout (``distributed.sharding.compute_specs``), the reference's
+parallelism profile: the embedding table vocab-sharded over ``ep_axis``
+(the vocab-parallel embedding and logits), every expert stack
+expert-sharded over it, and Megatron tensor parallelism in the dense
+layers: attention heads and dense FFN hidden units split over it
+(``copy_to`` before the column-parallel products, ``reduce_from`` after
+the row-parallel one).  Where the heads do not divide ``ep_axis`` (qwen2's
+28 at 16, the case the reference pins apart) every rank of a model group
+runs every head, as do Mamba-2 blocks, whose split is queued.  Decoding
+keeps each rank's rows and its ``S / model`` positions of every attention
+cache (split-K, ``attention_decode``).  An MoE FFN takes each model rank's
+contiguous share of the data shard's tokens into ``moe_apply_local``
+(model D's all_to_all) and gathers the outputs back, for train and
+prefill; decode replicates the tokens over the group and sums each rank's
+experts' outputs.  The reference's sharding pins (``constrain_batch``,
+``constrain_spec``) are placement hints with no numeric effect,
+identities here.  ``model_init`` and ``init_cache`` place their tensors on
+``device``, the card by default.
 """
 from __future__ import annotations
 
@@ -41,10 +48,12 @@ import torch.nn.functional as F
 from torch.utils._pytree import tree_map
 
 from repro_torch.carry import check_device
+from repro_torch.distributed.sharding import tp_layout
 from repro_torch.exchange.group import gather_from, reduce_from, split_to
 
 from .attention import (
     AttnConfig,
+    TPHeads,
     attention_decode,
     attention_train,
     attn_init,
@@ -217,6 +226,25 @@ class ShardCtx:
     def ep_group(self):
         return self.mesh.group(self.ep_axis)
 
+    def tp_heads(self, cfg: "ModelConfig") -> Optional[TPHeads]:
+        """Attention heads split over ``ep_axis`` where they divide it
+        (``None``: every head on every rank)."""
+        if self.mesh is None or self.ep_shards == 1:
+            return None
+        layout = tp_layout(cfg, self.ep_shards)
+        return TPHeads(self.ep_group, layout.kv_heads) if layout.heads else None
+
+    def ffn_group(self, cfg: "ModelConfig"):
+        """The group a dense FFN's hidden units split over (``None``: whole)."""
+        if self.mesh is None or self.ep_shards == 1 or not tp_layout(cfg, self.ep_shards).ffn:
+            return None
+        return self.ep_group
+
+    @property
+    def seq_group(self):
+        """The group a decode cache's positions split over (``None``: whole)."""
+        return None if self.mesh is None or self.ep_shards == 1 else self.ep_group
+
     def constrain_batch(self, x: torch.Tensor) -> torch.Tensor:
         """The reference pins dim 0 of an activation to the batch axes; the
         port's ranks hold their rows already, so this is the identity."""
@@ -335,7 +363,7 @@ def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardCtx, stat
     over the model group and sums the ranks' experts."""
     h = rmsnorm(p["norm2"], x)
     if "ffn" in p:
-        return x + mlp(p["ffn"], h), stats
+        return x + mlp(p["ffn"], h, ctx.ffn_group(cfg)), stats
     B, S, D = h.shape
     flat = h.reshape(B * S, D)
     mcfg = cfg.moe_cfg()
@@ -381,7 +409,8 @@ def _apply_block(p: Params, cfg: ModelConfig, kind: str, ffn, x, ctx, stats, *,
     if kind.startswith("attn"):
         # the reference pins heads only where they do not divide the model axis
         attn_pin = pin if (pin and cfg.n_heads % ctx.ep_shards) else None
-        x = x + attention_train(p["attn"], cfg.attn_cfg(kind), h, constrain=attn_pin)
+        x = x + attention_train(p["attn"], cfg.attn_cfg(kind), h, constrain=attn_pin,
+                                tp=ctx.tp_heads(cfg))
     else:
         x = x + mamba_train(p["mamba"], cfg.mamba_cfg(), h, constrain=pin)
     if ffn is not None:
@@ -422,14 +451,19 @@ def forward(
 
 
 # ---------------------------------------------------------------- decode ---
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", *,
+               ctx: ShardCtx = ShardCtx()):
     """Per-group stacked caches on ``device``: each leaf has a leading
-    ``n_groups`` axis."""
+    ``n_groups`` axis.  On a mesh ``batch`` is this rank's rows and each
+    attention cache holds this rank's block of positions (split-K; raises
+    where they do not split over ``ctx.ep_axis``)."""
     device = check_device(device)
+    splits = 1 if ctx.seq_group is None else ctx.seq_group.size
 
     def one(kind: str):
         if kind.startswith("attn"):
-            c = init_kv_cache(cfg.attn_cfg(kind), batch, max_len, cfg.compute_dtype, device)
+            c = init_kv_cache(cfg.attn_cfg(kind), batch, max_len, cfg.compute_dtype, device,
+                              splits=splits)
         else:
             c = init_mamba_cache(cfg.mamba_cfg(), batch, cfg.compute_dtype, device)
         return type(c)(*(t.expand((cfg.n_groups,) + t.shape).clone() for t in c))
@@ -465,7 +499,8 @@ def decode_step(
             p = gp[f"pos{i}"]
             h = rmsnorm(p["norm1"], x)
             if kind.startswith("attn"):
-                out, nc = attention_decode(p["attn"], cfg.attn_cfg(kind), h, gcache[f"pos{i}"])
+                out, nc = attention_decode(p["attn"], cfg.attn_cfg(kind), h, gcache[f"pos{i}"],
+                                           tp=ctx.tp_heads(cfg), seq=ctx.seq_group)
             else:
                 out, nc = mamba_decode(p["mamba"], cfg.mamba_cfg(), h, gcache[f"pos{i}"])
             x = x + out

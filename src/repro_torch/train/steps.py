@@ -28,7 +28,14 @@ loss is vocab-parallel (each model rank's logits over its rows of the
 table, the logsumexp combined by a max and a sum over "model", the gold
 logit a second vocab-parallel lookup) and its mean covers every batch
 row: sum and count are summed over the batch axes.  ``prefill_step`` and
-``serve_decode_step`` take params in the compute layout.
+``serve_decode_step`` take params in the compute layout
+(``sharding.compute_specs``: heads and FFN hidden units split over
+"model") and this rank's rows; their cache holds each rank's block of
+every attention cache's positions (split-K), whose length must divide
+"model".
+
+A step reads nothing on the host: the dry-run (``launch/dryrun.py``)
+traces these same functions on fake tensors.
 """
 from __future__ import annotations
 
@@ -45,13 +52,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.distributed.sharding import gather_tree, map_with_path
 from repro_torch.exchange.group import copy_to, reduce_from
-from repro_torch.models.attention import (
-    KVCache,
-    _blocked_local,
-    _flash_causal,
-    _pin_heads,
-    _project_qkv,
-)
+from repro_torch.models.attention import KVCache, _pin_heads, _project_qkv, attend, kv_rows
 from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.mamba2 import MambaCache, mamba_scan
 from repro_torch.models.transformer import (
@@ -150,8 +151,9 @@ def chunked_ce_loss(
     return tot / torch.clamp(cnt, min=1)
 
 
-# the outputs "dots" remat keeps; everything else is recomputed
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+# the outputs "dots" remat keeps (the reference's checkpoint_dots_with_no_batch_dims:
+# products with no batch dim, so not attention's scores); the rest is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -160,7 +162,7 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _group_body(cfg: ModelConfig, ctx: ShardCtx, moe_capacity, specs, x, gp, aux, ovf, drp, pk):
     if specs is not None:  # stored blocks -> the compute layout, again in the recompute
-        gp = gather_tree(gp, specs, ctx.mesh, ep_axis=ctx.ep_axis)
+        gp = gather_tree(gp, specs, ctx.mesh, cfg, ep_axis=ctx.ep_axis)
     x = ctx.constrain_batch(x)
     stats = {"moe_aux": aux, "moe_overflow": ovf, "moe_dropped": drp, "moe_peak": pk}
     for i, (kind, ffn) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
@@ -227,7 +229,7 @@ def loss_fn(
     if ctx.mesh is not None:
         if specs is None:
             raise ValueError("a mesh step takes the params' fitted specs (specs=)")
-        params = {**{k: gather_tree(params[k], specs[k], ctx.mesh, ep_axis=ctx.ep_axis)
+        params = {**{k: gather_tree(params[k], specs[k], ctx.mesh, cfg, ep_axis=ctx.ep_axis)
                      for k in params if k != "blocks"}, "blocks": params["blocks"]}
         block_specs = specs["blocks"]
     x, stats = _hidden_states(params, cfg, batch["tokens"], batch.get("frontend_embeds"), ctx,
@@ -302,26 +304,56 @@ def train_step(
 
 # ---------------------------------------------------------------- serving ---
 def _prefill_attention(p, cfg: ModelConfig, kind: str, h: torch.Tensor, cache_len: int,
-                       constrain=None):
-    """One attention block over the prompt: (output, its KVCache)."""
+                       ctx: ShardCtx, constrain=None):
+    """One attention block over the prompt: (output, its KVCache).  On a
+    mesh the heads split as in training and the cache holds this rank's
+    block of positions for every KV head (``_cache_block``)."""
     B, S, _ = h.shape
     acfg = cfg.attn_cfg(kind)
+    tp, seq = ctx.tp_heads(cfg), ctx.seq_group
+    x = h if tp is None else copy_to(tp.group, h)
     positions = torch.arange(S, device=h.device).expand(B, S)
-    q, k, v = _pin_heads(*_project_qkv(p, acfg, h, positions), constrain)
-    if acfg.sliding_window and S > acfg.sliding_window:
-        out = _blocked_local(q, k, v, acfg)
+    q, k, v = _pin_heads(*_project_qkv(p, acfg, x, positions, tp), constrain)
+    out = linear(p["wo"], attend(q, k, v, acfg).reshape(B, S, -1))
+    if tp is not None:
+        out = reduce_from(tp.group, out)
+    if seq is not None:
+        kc, vc = _cache_block(p, acfg, x, cache_len, tp, seq)
+    elif acfg.sliding_window and S > acfg.sliding_window:
         w = acfg.sliding_window
         # ring buffer filled in order: position S-w+j sits in slot (S+j) % w
         roll = (-(S % w)) % w
         kc = torch.roll(k[:, -w:], -roll, dims=1)
         vc = torch.roll(v[:, -w:], -roll, dims=1)
     else:
-        out = _flash_causal(q, k, v, acfg)
         pad = (0, 0, 0, 0, 0, cache_len - S)
         kc, vc = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     length = torch.tensor(S, dtype=torch.int32, device=h.device)
-    cache = KVCache(kc.to(cfg.compute_dtype), vc.to(cfg.compute_dtype), length)
-    return linear(p["wo"], out.reshape(B, S, -1)), cache
+    return out, KVCache(kc.to(cfg.compute_dtype), vc.to(cfg.compute_dtype), length)
+
+
+def _cache_block(p, acfg, x: torch.Tensor, cache_len: int, tp, seq):
+    """This rank's block of a prefilled cache's slots, every KV head: the
+    one-device layout (the prompt padded to ``cache_len``, or a local
+    layer's ring of its window) cut over ``seq``; each slot's K/V
+    projected from the prompt row it holds, zeros where it holds none."""
+    B, S, _ = x.shape
+    w = acfg.sliding_window
+    ring = bool(w) and S > w
+    size = w if ring else cache_len
+    if size % seq.size:
+        raise ValueError(f"a cache of {size} positions does not split over {seq.size} ranks")
+    local = size // seq.size
+    slots = range(seq.rank * local, (seq.rank + 1) * local)
+    if ring:  # slot s holds the position of the window congruent to it (mod w)
+        rows = [S - w + (s + (-(S % w)) % w) % w for s in slots]
+    else:
+        rows = [min(s, S - 1) for s in slots]
+    idx = torch.tensor(rows, device=x.device)
+    k, v = kv_rows(p, acfg, x[:, idx], idx.expand(B, local), tp)
+    held = torch.tensor([ring or s < S for s in slots], device=x.device)[None, :, None, None]
+    zero = torch.zeros((), dtype=k.dtype, device=x.device)
+    return torch.where(held, k, zero), torch.where(held, v, zero)
 
 
 def prefill_step(
@@ -338,6 +370,8 @@ def prefill_step(
     Global attention caches hold ``cache_len`` positions (the prompt, then
     zeros); local layers hold their window as a ring buffer; Mamba layers
     keep the last ``conv_kernel - 1`` conv inputs and the final SSM state.
+    On a mesh each rank keeps its block of every attention cache's
+    positions (raises where they do not divide ``ctx.ep_axis``).
     """
     B, S = tokens.shape
     cache_len = cache_len or S
@@ -353,7 +387,7 @@ def prefill_step(
             h = rmsnorm(p["norm1"], x)
             if kind.startswith("attn"):
                 out, new_cache[f"pos{i}"] = _prefill_attention(p["attn"], cfg, kind, h, cache_len,
-                                                               attn_pin)
+                                                               ctx, attn_pin)
             else:
                 mcfg = cfg.mamba_cfg()
                 out, xbc, h_last = mamba_scan(p["mamba"], mcfg, h, pin)

@@ -43,6 +43,24 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert out.stdout.strip() == "[]"
 
 
+def test_every_module_imports_without_jax_or_the_reference():
+    """Every module of the package, found by walking it (the dry-run
+    included), loads neither jax nor the reference."""
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'repro_torch.launch.dryrun' in sys.modules\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))]\n"
+        "print(bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_no_source_file_imports_jax_or_the_reference():
     sources = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     assert len(sources) >= 45

@@ -4,8 +4,11 @@ and ``serve_decode_step`` on 2 and 4 gloo ranks against the reference.
 Each case runs one config on one mesh (``data x model`` = 1x2, 2x1, 2x2,
 1x4).  The port's ranks hold the reference's params in the compute layout
 (``carry.shard_from_reference`` under ``compute_specs``: the table
-vocab-sharded and the experts expert-sharded over "model") and their rows
-of the batch.  Held:
+vocab-sharded, the experts expert-sharded, and the attention heads and
+dense FFN hidden units split over "model", Megatron's tensor
+parallelism) and their rows of the batch; the decode cache holds each
+rank's block of positions (split-K), so its length, ``CACHE_LEN``,
+divides every model axis here.  Held:
 
 * against the reference's single-device results: ``forward``'s logits,
   ``prefill_step``'s last logits and two greedy ``serve_decode_step``s'
@@ -38,6 +41,7 @@ OUT = dict(atol=1e-4, rtol=1e-4)
 INT8_WIRE_RL2 = 2e-3
 AUX_RTOL = 1e-5
 B, S, PROMPT, DECODE = 4, 16, 12, 2
+CACHE_LEN = 16  # PROMPT + DECODE rounded up: a mesh splits the cache's positions
 # case: (config, (data, model), no token dropped: a mesh and one device agree)
 CASES = {
     "m-1x2": ("m", (1, 2), True), "m-2x1": ("m", (2, 1), True), "m-2x2": ("m", (2, 2), True),
@@ -95,7 +99,8 @@ for case, (name, shape, _) in CASES.items():
     mesh = Mesh(shape, ("data", "model"))
     ctx = ShardCtx(mesh=mesh, axes=mesh.axis_names)
     full = tree_of(f"{{case}}/p/")
-    params = shard_from_reference(full, compute_specs(param_specs(full)), mesh, "cpu")
+    params = shard_from_reference(full, compute_specs(param_specs(full), cfg, shape[1]), mesh,
+                                  "cpu")
     toks = rows(torch.from_numpy(IN[f"{{case}}/tokens"]), mesh)
     with torch.no_grad():
         logits, _ = forward(params, cfg, toks, ctx=ctx)
@@ -141,7 +146,7 @@ def _inputs() -> dict:
 def runs(tmp_path_factory):
     wd = tmp_path_factory.mktemp("mesh_model")
     save_inputs(wd, _inputs())
-    fmt = dict(cases=CASES, prompt=PROMPT, decode=DECODE, cache_len=PROMPT + DECODE)
+    fmt = dict(cases=CASES, prompt=PROMPT, decode=DECODE, cache_len=CACHE_LEN)
     with ThreadPoolExecutor(max_workers=1 + len(WORLDS)) as pool:
         ref = pool.submit(run_reference, REF_IMPORTS + REF_BODY.format(**fmt), 4, wd)
         ports = {w: pool.submit(run_port, PORT_IMPORTS + PORT_BODY.format(**fmt), w, wd, 420)
