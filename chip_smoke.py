@@ -2007,10 +2007,10 @@ def _tp_compare(label: str, got: dict, bf16: bool) -> dict:
         else:
             err, bound = max_abs_err(a, b), TP_CHECK_LOGITS * float(b.abs().max())
             check(err <= bound, f"{label} step {i}: logits off one card's ({err:.3g} > {bound:.3g})")
-            steps.append({"max_abs_err": err, "bound": bound})
+            steps.append({"rel_l2": _rel_l2(a, b), "max_abs_err": err, "bound": bound})
     same = all(torch.equal(a, b) for a, b in zip(got["mesh"]["tokens"], got["one"]["tokens"]))
     check(same, f"{label}: greedy tokens differ from one card's")
-    return {"steps": len(steps), "worst_rel_l2": max(s.get("rel_l2", 0.0) for s in steps),
+    return {"steps": len(steps), "worst_rel_l2": max(s["rel_l2"] for s in steps),
             "worst_max_abs_err": max(s["max_abs_err"] for s in steps),
             "greedy_tokens_equal": same}
 
@@ -2109,7 +2109,6 @@ def tp_dryrun(rank: int, device_type: str, train_kw: dict) -> dict:
     from repro_torch.configs.base import ARCHS
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.models.transformer import init_cache
     from repro_torch.optim.adamw import OptConfig
 
     cfg = ARCHS[LM_ARCH]
@@ -2128,8 +2127,8 @@ def tp_dryrun(rank: int, device_type: str, train_kw: dict) -> dict:
                                          opt_cfg=OptConfig(state_dtype=train_kw["state_dtype"]))
             else:
                 inputs = {"tokens": torch.empty((LM_BATCH, 1), dtype=torch.int32, device="meta")}
-                cache = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device="meta")
-                cell = dryrun.build_cell(cfg, "decode", inputs, mesh, device, mode, cache=cache)
+                cell = dryrun.build_cell(cfg, "decode", inputs, mesh, device, mode,
+                                         cache_len=LM_PROMPT + LM_GEN)
             rec = dryrun.trace(*cell[:2], mode)
             out[kind] = {"memory": rec["memory"], "collectives": rec["collectives"],
                          "flops": rec["cost"]["flops"], "trace_s": rec["trace_s"]}

@@ -58,12 +58,12 @@ __all__ = [
     "gather_leaf",
     "gather_tree",
     "map_with_path",
-    "mesh_cache_specs",
     "opt_state_specs",
     "param_specs",
     "replication",
     "shard_tree",
     "spec_axes",
+    "splits_positions",
     "tp_layout",
     "unshard_tree",
     "TPLayout",
@@ -193,31 +193,14 @@ def cache_specs(cache, cfg) -> Any:
     return map_with_path(one, cache)
 
 
-def _without(entry, axis):
-    """A spec entry without ``axis``."""
-    kept = tuple(a for a in spec_axes(entry) if a != axis)
-    return kept if len(kept) > 1 else (kept[0] if kept else None)
-
-
-def mesh_cache_specs(cache, cfg, mesh, ep_axis: str = "model") -> Any:
-    """The layout the port's mesh decode keeps its cache in, fitted to the
-    (whole) cache: ``cache_specs``'s, attention caches' positions split
-    over ``ep_axis`` (split-K) and their rows over the batch axes; Mamba
-    states keep only the batch split (their heads over "model" are
-    queued).  Raises ``ValueError`` where an attention cache's length does
-    not divide ``ep_axis``: the port's mesh decode always splits positions
-    (every cell of ``configs.base`` divides)."""
-    specs = fit_tree(cache_specs(cache, cfg), cache, mesh)
-
-    def one(path, leaf, spec):
-        if not cfg.pattern[int(path[0][3:])].startswith("attn"):
-            return tuple(_without(e, ep_axis) for e in spec)
-        if _ndim(leaf) == 5 and ep_axis not in spec_axes(spec[2]) and mesh.shape[ep_axis] > 1:
-            raise ValueError(f"{path}: a cache of {leaf.shape[2]} positions does not split over "
-                             f"{ep_axis}={mesh.shape[ep_axis]}")
-        return spec
-
-    return map_with_path(one, cache, specs)
+def splits_positions(size: int, mesh, ep_axis: str = "model") -> bool:
+    """Whether an attention cache of ``size`` positions holds one block of
+    them on each rank of ``ep_axis`` (split-K): ``cache_specs``'s sequence
+    entry fitted to ``size``.  Where the axis does not divide ``size`` the
+    fitted spec drops it and the cache is replicated over it, as the
+    reference's is."""
+    return mesh.shape.get(ep_axis, 1) > 1 and ep_axis in spec_axes(
+        fit_spec((size,), (ep_axis,), mesh)[0])
 
 
 def batch_specs(batch: dict) -> Any:

@@ -5,7 +5,7 @@ Counterpart of ``repro/launch/dryrun.py``, which lowers and compiles each
 cell for 256 or 512 placeholder devices and reads XLA's memory and cost
 analyses and the collectives of the optimized HLO.  Here nothing is
 compiled and nothing is allocated: a ``fake`` process group stands in for
-the mesh's world (one process, one rank of it, rank 0 by default), and the
+the mesh's world (one process, as its rank 0), and the
 port's own ``train_step`` / ``prefill_step`` / ``serve_decode_step`` run on
 ``FakeTensorMode`` tensors (shape, dtype and device, no storage) on the
 rank's blocks of params, optimizer state, batch and cache, under
@@ -24,9 +24,9 @@ The inputs follow the reference's ``build_cell``: params from
 FSDP x TP layout, ``param_specs``; prefill and decode: the compute layout
 the port's serving steps take, ``compute_specs``), AdamW state with int8
 moments above 3e10 params, 4 microbatches, a loss chunk of 512, this
-rank's rows of ``input_specs`` and, for decode, its block of
-``configs.base.cache_specs`` in the split-K layout
-(``sharding.mesh_cache_specs``).  Records go to
+rank's rows of ``input_specs`` and, for decode, its cache from
+``init_cache`` on this rank's mesh context: its rows and, split-K, its
+block of every attention cache's positions.  Records go to
 ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json`` with the
 reference's keys (``lower_s`` is the trace's seconds, ``compile_s`` 0).
 Every count is one of the port's step on one rank, not a TPU number.
@@ -53,18 +53,18 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.configs.base import ARCHS, SHAPES, all_cells, cache_specs, cell_applicable, input_specs
+from repro_torch.configs.base import ARCHS, SHAPES, all_cells, cell_applicable, input_specs
 from repro_torch.distributed.sharding import (
     batch_specs,
     compute_specs,
     fit_tree,
-    mesh_cache_specs,
     param_specs,
     shard_tree,
+    tp_layout,
 )
 from repro_torch.exchange.group import CollectiveCounter
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.transformer import ShardCtx, model_init
+from repro_torch.models.transformer import ShardCtx, init_cache, model_init
 from repro_torch.optim.adamw import OptConfig, init_opt_state
 from repro_torch.train.steps import prefill_step, serve_decode_step, train_step
 from repro_torch.tree import from_paths, paths
@@ -165,12 +165,12 @@ def _fake(tree, device):
                       for p, t in paths(tree))
 
 
-def build_cell(cfg, kind: str, inputs: dict, mesh, device, mode, *, cache=None,
+def build_cell(cfg, kind: str, inputs: dict, mesh, device, mode, *, cache_len: int = 0,
                n_microbatch: int = 4, loss_chunk: int = 512, opt_cfg=None):
     """``(fn, args, notes)`` for one step of ``cfg`` (``kind`` train,
     prefill or decode) on this rank of ``mesh``.  ``inputs`` are the whole
-    batch's ``meta`` stand-ins (``input_specs``), ``cache`` the whole
-    decode cache's; ``args`` are this rank's blocks as fake tensors of
+    batch's ``meta`` stand-ins (``input_specs``), ``cache_len`` the decode
+    cache's positions; ``args`` are this rank's blocks as fake tensors of
     ``mode`` (a ``FakeTensorMode``) on ``device``.  ``opt_cfg`` defaults to
     the reference's choice (int8 moments above 3e10 params)."""
     M = mesh.shape["model"]
@@ -181,7 +181,7 @@ def build_cell(cfg, kind: str, inputs: dict, mesh, device, mode, *, cache=None,
     if "mamba" in cfg.pattern:
         notes.append("Mamba-2 blocks run whole on every rank of a model group "
                      "(their split over 'model' is queued)")
-    if cfg.n_heads and cfg.n_heads % M:
+    if cfg.n_heads and not tp_layout(cfg, M).heads:
         notes.append(f"{cfg.n_heads} heads do not divide model={M}: every rank runs every head")
     # the blocks' shapes, cut on meta tensors; the fakes are made in the mode
     b_meta = shard_tree(inputs, fit_tree(batch_specs(inputs), inputs, mesh), mesh)
@@ -190,7 +190,7 @@ def build_cell(cfg, kind: str, inputs: dict, mesh, device, mode, *, cache=None,
     else:
         p_meta = shard_tree(meta, compute_specs(param_specs(meta), cfg, M), mesh)
     if kind == "decode":
-        c_meta = shard_tree(cache, mesh_cache_specs(cache, cfg, mesh), mesh)
+        c_meta = init_cache(cfg, b_meta["tokens"].shape[0], cache_len, device="meta", ctx=ctx)
     with mode:
         b_in, p_in = _fake(b_meta, device), _fake(p_meta, device)
         if kind == "train":
@@ -241,32 +241,28 @@ def trace(fn, args, mode) -> dict:
     }
 
 
-def run_cell(arch: str, shape: str, mesh_kind: str, outdir: str, device="cuda",
-             rank: int = 0) -> dict:
-    """Trace one cell as ``rank`` of the production mesh (``mesh_kind``
+def run_cell(arch: str, shape: str, mesh_kind: str, outdir: str, device="cuda") -> dict:
+    """Trace one cell as rank 0 of the production mesh (``mesh_kind``
     ``pod`` or ``multipod``); writes and returns its record."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     multi = mesh_kind == "multipod"
-    kind = SHAPES[shape][2]
+    seq, _, kind = SHAPES[shape]
     world = 512 if multi else 256
-    with fake_world(world, rank):
+    with fake_world(world):
         mesh = make_production_mesh(multi_pod=multi)
         mode = FakeTensorMode()
         t0 = time.perf_counter()
         cfg = ARCHS[arch]
         fn, args, notes = build_cell(
             cfg, kind, input_specs(cfg, shape), mesh, torch.device(device), mode,
-            cache=cache_specs(cfg, shape) if kind == "decode" else None)
+            cache_len=seq)
         traced = trace(fn, args, mode)
-        coords = dict(mesh.coords)
     rec = {
         "arch": arch,
         "shape": shape,
         "mesh": mesh_kind,
         "n_devices": world,
-        "rank": rank,
-        "coords": coords,
         "device": str(device),
         "lower_s": round(time.perf_counter() - t0, 2),
         "compile_s": 0,
@@ -291,7 +287,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--device", default="cuda",
                     help="the fake tensors' device: cuda (the default) or cpu")
-    ap.add_argument("--rank", type=int, default=0, help="the mesh rank traced")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells traced at once, each in a process of its own")
     return ap
@@ -310,7 +305,7 @@ def main(argv=None) -> int:
         if not cell_applicable(arch, shape):
             print(f"SKIP {arch} {shape} (documented: needs sub-quadratic path)")
             continue
-        runs += [(arch, shape, mk, args.out, args.device, args.rank) for mk in meshes]
+        runs += [(arch, shape, mk, args.out, args.device) for mk in meshes]
     pool = None
     if args.jobs > 1:
         import multiprocessing

@@ -21,7 +21,9 @@ the cache's positions over the group instead (split-K, ``seq``): every
 rank holds every KV head for its ``S / model`` positions, computes the
 float32 partial softmax (max, sum, weighted values) of every query head
 over them, and the partials combine over the group (flash-decoding);
-``wo`` stays row-parallel.
+``wo`` stays row-parallel.  A cache whose length does not divide the group
+is replicated over it instead (``sharding.splits_positions``), and every
+rank attends over all of it.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ __all__ = [
     "TPHeads",
     "attn_init",
     "KVCache",
+    "SplitKVCache",
+    "cache_size",
     "init_kv_cache",
     "attention_train",
     "attention_decode",
@@ -272,18 +276,29 @@ class KVCache(NamedTuple):
     length: torch.Tensor     # 0-d int32: tokens written so far
 
 
+class SplitKVCache(KVCache):
+    """A ``KVCache`` that holds one rank's block of its positions, every KV
+    head (split-K).  A rank's block alone does not tell the whole length,
+    so the type carries the layout from the cache's making to its decode."""
+    __slots__ = ()
+
+
+def cache_size(cfg: AttnConfig, max_len: int) -> int:
+    """The positions an empty cache holds: a local layer's ring of its
+    window, else ``max_len``."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int, dtype, device="cuda", *,
                   splits: int = 1) -> KVCache:
-    """An empty cache (a ring buffer of the window for a local layer); with
-    ``splits`` one rank's block of its positions (split-K)."""
+    """An empty cache of ``cache_size`` positions; with ``splits`` > 1 one
+    rank's block of them (a ``SplitKVCache``)."""
     device = check_device(device)
-    size = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    if size % splits:
-        raise ValueError(f"a cache of {size} positions does not split over {splits} ranks")
-    shape = (batch, size // splits, cfg.n_kv_heads, cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros((), dtype=torch.int32, device=device))
+    shape = (batch, cache_size(cfg, max_len) // splits, cfg.n_kv_heads, cfg.head_dim)
+    return (SplitKVCache if splits > 1 else KVCache)(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
 
 
 def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor, cache: KVCache,
@@ -292,8 +307,8 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor, cache: KVCache
     passed in is not modified.  The position stays on the device: no host
     read a step.
 
-    With ``seq`` (an ``AxisGroup``) the cache holds this rank's block of
-    positions (ring slots for a local layer) for every KV head: the new
+    With ``seq`` (an ``AxisGroup``) the cache is a ``SplitKVCache``, this
+    rank's block of positions (ring slots for a local layer): the new
     token's K/V goes to the rank that owns its slot, and the partial
     softmaxes combine over ``seq`` (module docstring).  ``tp`` splits the
     projections' heads over its group."""
@@ -345,9 +360,10 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor, cache: KVCache
         acc = seq.psum(_f32_einsum("bxgst,btxd->bsxgd", e.to(v.dtype), v))
         out = (acc / total.permute(0, 3, 1, 2)[..., None]).to(v.dtype)
     out = out.reshape(B, 1, H * hd)
+    new = type(cache)(k, v, pos + 1)
     if tp is None:
-        return linear(p["wo"], out), KVCache(k, v, pos + 1)
+        return linear(p["wo"], out), new
     q0, n = tp.query_heads(cfg)
     out = linear(p["wo"], out[..., q0 * hd:(q0 + n) * hd])
-    return reduce_from(tp.group, out), KVCache(k, v, pos + 1)
+    return reduce_from(tp.group, out), new
 

@@ -28,7 +28,9 @@ the row-parallel one).  Where the heads do not divide ``ep_axis`` (qwen2's
 28 at 16, the case the reference pins apart) every rank of a model group
 runs every head, as do Mamba-2 blocks, whose split is queued.  Decoding
 keeps each rank's rows and its ``S / model`` positions of every attention
-cache (split-K, ``attention_decode``).  An MoE FFN takes each model rank's
+cache (split-K, ``attention_decode``), where they divide ``ep_axis``
+(``ShardCtx.seq_group``); a cache whose length does not is replicated over
+it, as the reference's is.  An MoE FFN takes each model rank's
 contiguous share of the data shard's tokens into ``moe_apply_local``
 (model D's all_to_all) and gathers the outputs back, for train and
 prefill; decode replicates the tokens over the group and sums each rank's
@@ -48,15 +50,17 @@ import torch.nn.functional as F
 from torch.utils._pytree import tree_map
 
 from repro_torch.carry import check_device
-from repro_torch.distributed.sharding import tp_layout
+from repro_torch.distributed.sharding import splits_positions, tp_layout
 from repro_torch.exchange.group import gather_from, reduce_from, split_to
 
 from .attention import (
     AttnConfig,
+    SplitKVCache,
     TPHeads,
     attention_decode,
     attention_train,
     attn_init,
+    cache_size,
     init_kv_cache,
 )
 from .layers import Params, embed, embed_init, mlp, mlp_init, rmsnorm, rmsnorm_init, unembed
@@ -240,10 +244,12 @@ class ShardCtx:
             return None
         return self.ep_group
 
-    @property
-    def seq_group(self):
-        """The group a decode cache's positions split over (``None``: whole)."""
-        return None if self.mesh is None or self.ep_shards == 1 else self.ep_group
+    def seq_group(self, size: int):
+        """The group an attention cache of ``size`` positions splits them
+        over (``None``: whole on each rank)."""
+        if self.mesh is None or not splits_positions(size, self.mesh, self.ep_axis):
+            return None
+        return self.ep_group
 
     def constrain_batch(self, x: torch.Tensor) -> torch.Tensor:
         """The reference pins dim 0 of an activation to the batch axes; the
@@ -455,15 +461,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", *,
                ctx: ShardCtx = ShardCtx()):
     """Per-group stacked caches on ``device``: each leaf has a leading
     ``n_groups`` axis.  On a mesh ``batch`` is this rank's rows and each
-    attention cache holds this rank's block of positions (split-K; raises
-    where they do not split over ``ctx.ep_axis``)."""
+    attention cache holds this rank's block of positions where they split
+    over ``ctx.ep_axis`` (``ShardCtx.seq_group``)."""
     device = check_device(device)
-    splits = 1 if ctx.seq_group is None else ctx.seq_group.size
 
     def one(kind: str):
         if kind.startswith("attn"):
-            c = init_kv_cache(cfg.attn_cfg(kind), batch, max_len, cfg.compute_dtype, device,
-                              splits=splits)
+            acfg = cfg.attn_cfg(kind)
+            seq = ctx.seq_group(cache_size(acfg, max_len))
+            c = init_kv_cache(acfg, batch, max_len, cfg.compute_dtype, device,
+                              splits=1 if seq is None else seq.size)
         else:
             c = init_mamba_cache(cfg.mamba_cfg(), batch, cfg.compute_dtype, device)
         return type(c)(*(t.expand((cfg.n_groups,) + t.shape).clone() for t in c))
@@ -499,8 +506,10 @@ def decode_step(
             p = gp[f"pos{i}"]
             h = rmsnorm(p["norm1"], x)
             if kind.startswith("attn"):
-                out, nc = attention_decode(p["attn"], cfg.attn_cfg(kind), h, gcache[f"pos{i}"],
-                                           tp=ctx.tp_heads(cfg), seq=ctx.seq_group)
+                c = gcache[f"pos{i}"]
+                seq = ctx.ep_group if isinstance(c, SplitKVCache) else None
+                out, nc = attention_decode(p["attn"], cfg.attn_cfg(kind), h, c,
+                                           tp=ctx.tp_heads(cfg), seq=seq)
             else:
                 out, nc = mamba_decode(p["mamba"], cfg.mamba_cfg(), h, gcache[f"pos{i}"])
             x = x + out

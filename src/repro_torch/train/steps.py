@@ -31,8 +31,8 @@ row: sum and count are summed over the batch axes.  ``prefill_step`` and
 ``serve_decode_step`` take params in the compute layout
 (``sharding.compute_specs``: heads and FFN hidden units split over
 "model") and this rank's rows; their cache holds each rank's block of
-every attention cache's positions (split-K), whose length must divide
-"model".
+every attention cache's positions (split-K) where its length divides
+"model", and all of them where it does not.
 
 A step reads nothing on the host: the dry-run (``launch/dryrun.py``)
 traces these same functions on fake tensors.
@@ -52,7 +52,8 @@ from torch.utils.checkpoint import (
 
 from repro_torch.distributed.sharding import gather_tree, map_with_path
 from repro_torch.exchange.group import copy_to, reduce_from
-from repro_torch.models.attention import KVCache, _pin_heads, _project_qkv, attend, kv_rows
+from repro_torch.models.attention import (KVCache, SplitKVCache, _pin_heads, _project_qkv, attend,
+                                          kv_rows)
 from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.mamba2 import MambaCache, mamba_scan
 from repro_torch.models.transformer import (
@@ -306,21 +307,25 @@ def train_step(
 def _prefill_attention(p, cfg: ModelConfig, kind: str, h: torch.Tensor, cache_len: int,
                        ctx: ShardCtx, constrain=None):
     """One attention block over the prompt: (output, its KVCache).  On a
-    mesh the heads split as in training and the cache holds this rank's
-    block of positions for every KV head (``_cache_block``)."""
+    mesh the heads split as in training and the cache holds every KV head,
+    of this rank's block of positions where they split over "model"
+    (``ShardCtx.seq_group``, a ``SplitKVCache``), else of all of them
+    (``_cache_block``)."""
     B, S, _ = h.shape
     acfg = cfg.attn_cfg(kind)
-    tp, seq = ctx.tp_heads(cfg), ctx.seq_group
+    w = acfg.sliding_window
+    ring = bool(w) and S > w
+    size = w if ring else cache_len
+    tp, seq = ctx.tp_heads(cfg), ctx.seq_group(size)
     x = h if tp is None else copy_to(tp.group, h)
     positions = torch.arange(S, device=h.device).expand(B, S)
     q, k, v = _pin_heads(*_project_qkv(p, acfg, x, positions, tp), constrain)
     out = linear(p["wo"], attend(q, k, v, acfg).reshape(B, S, -1))
     if tp is not None:
         out = reduce_from(tp.group, out)
-    if seq is not None:
-        kc, vc = _cache_block(p, acfg, x, cache_len, tp, seq)
-    elif acfg.sliding_window and S > acfg.sliding_window:
-        w = acfg.sliding_window
+    if tp is not None or seq is not None:
+        kc, vc = _cache_block(p, acfg, x, size, ring, tp, seq)
+    elif ring:
         # ring buffer filled in order: position S-w+j sits in slot (S+j) % w
         roll = (-(S % w)) % w
         kc = torch.roll(k[:, -w:], -roll, dims=1)
@@ -329,22 +334,21 @@ def _prefill_attention(p, cfg: ModelConfig, kind: str, h: torch.Tensor, cache_le
         pad = (0, 0, 0, 0, 0, cache_len - S)
         kc, vc = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     length = torch.tensor(S, dtype=torch.int32, device=h.device)
-    return out, KVCache(kc.to(cfg.compute_dtype), vc.to(cfg.compute_dtype), length)
+    return out, (KVCache if seq is None else SplitKVCache)(
+        kc.to(cfg.compute_dtype), vc.to(cfg.compute_dtype), length)
 
 
-def _cache_block(p, acfg, x: torch.Tensor, cache_len: int, tp, seq):
-    """This rank's block of a prefilled cache's slots, every KV head: the
-    one-device layout (the prompt padded to ``cache_len``, or a local
-    layer's ring of its window) cut over ``seq``; each slot's K/V
-    projected from the prompt row it holds, zeros where it holds none."""
+def _cache_block(p, acfg, x: torch.Tensor, size: int, ring: bool, tp, seq):
+    """This rank's block of a prefilled cache's ``size`` slots (all of
+    them where ``seq`` is ``None``), every KV head: the one-device layout
+    (the prompt padded to ``size``, or a local layer's ``ring`` of its
+    window) cut over ``seq``; each slot's K/V projected from the prompt
+    row it holds, zeros where it holds none."""
     B, S, _ = x.shape
     w = acfg.sliding_window
-    ring = bool(w) and S > w
-    size = w if ring else cache_len
-    if size % seq.size:
-        raise ValueError(f"a cache of {size} positions does not split over {seq.size} ranks")
-    local = size // seq.size
-    slots = range(seq.rank * local, (seq.rank + 1) * local)
+    rank, n = (0, 1) if seq is None else (seq.rank, seq.size)
+    local = size // n
+    slots = range(rank * local, (rank + 1) * local)
     if ring:  # slot s holds the position of the window congruent to it (mod w)
         rows = [S - w + (s + (-(S % w)) % w) % w for s in slots]
     else:
@@ -371,7 +375,7 @@ def prefill_step(
     zeros); local layers hold their window as a ring buffer; Mamba layers
     keep the last ``conv_kernel - 1`` conv inputs and the final SSM state.
     On a mesh each rank keeps its block of every attention cache's
-    positions (raises where they do not divide ``ctx.ep_axis``).
+    positions where they divide ``ctx.ep_axis``, else all of them.
     """
     B, S = tokens.shape
     cache_len = cache_len or S

@@ -100,7 +100,6 @@ def test_collective_counter_equals_the_dry_run(counted, case, arch, kind):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.models.transformer import init_cache
     from repro_torch.optim.adamw import OptConfig
 
     cfg = reduced(ARCHS[arch])
@@ -108,9 +107,8 @@ def test_collective_counter_equals_the_dry_run(counted, case, arch, kind):
         with dryrun.fake_world(2, rank):
             mesh = Mesh((1, 2), ("data", "model"))
             mode = FakeTensorMode()
-            cache = init_cache(cfg, B, S, device="meta") if kind == "decode" else None
             fn, args, _ = dryrun.build_cell(cfg, kind, _inputs_meta(cfg, kind), mesh,
-                                            torch.device("cpu"), mode, cache=cache,
+                                            torch.device("cpu"), mode, cache_len=S,
                                             n_microbatch=MICRO, loss_chunk=CHUNK,
                                             opt_cfg=OptConfig())
             rec = dryrun.trace(fn, args, mode)
@@ -211,7 +209,8 @@ def test_the_decode_cells_cache_is_split_over_model():
         mesh = make_production_mesh()
         mode = FakeTensorMode()
         _, (_, _, cache), _ = dryrun.build_cell(cfg, "decode", input_specs(cfg, "decode_32k"), mesh,
-                                                torch.device("cpu"), mode, cache=whole)
+                                                torch.device("cpu"), mode,
+                                                cache_len=SHAPES["decode_32k"][0])
         rank = sum(c.k.nbytes + c.v.nbytes for c in cache.values())
     batch_split = sum(c.k.nbytes + c.v.nbytes for c in whole.values()) // 16
     assert rank * 16 == batch_split

@@ -6,14 +6,19 @@ Each case runs one config on one mesh (``data x model`` = 1x2, 2x1, 2x2,
 (``carry.shard_from_reference`` under ``compute_specs``: the table
 vocab-sharded, the experts expert-sharded, and the attention heads and
 dense FFN hidden units split over "model", Megatron's tensor
-parallelism) and their rows of the batch; the decode cache holds each
-rank's block of positions (split-K), so its length, ``CACHE_LEN``,
-divides every model axis here.  Held:
+parallelism) and their rows of the batch.  Decoding runs at two cache
+lengths: ``PROMPT + DECODE`` = 14, which a model axis of 4 does not
+divide, so there every rank holds the whole cache (the reference
+replicates it), and ``SPLIT_LEN`` = 16, which every model axis here
+divides, so each rank holds its block of the positions (split-K).  Held:
 
 * against the reference's single-device results: ``forward``'s logits,
   ``prefill_step``'s last logits and two greedy ``serve_decode_step``s'
   logits within atol = rtol = 1e-4, the greedy tokens equal (configs whose
-  capacity drops no token, where a mesh and one device compute the same);
+  capacity drops no token, where a mesh and one device compute the same),
+  at each cache length against the reference's at the same length;
+* a rank's attention caches hold ``length / model`` positions where the
+  model axis divides the length, else all ``length`` of them;
 * against the reference's own mesh path (``_torch_mesh_lm``): the MoE
   stats of ``_hidden_states`` (tokens dropped, the per-sender peak, the
   overflow flag) bit for bit and ``aux`` within 1e-5, and ``forward``'s
@@ -41,7 +46,8 @@ OUT = dict(atol=1e-4, rtol=1e-4)
 INT8_WIRE_RL2 = 2e-3
 AUX_RTOL = 1e-5
 B, S, PROMPT, DECODE = 4, 16, 12, 2
-CACHE_LEN = 16  # PROMPT + DECODE rounded up: a mesh splits the cache's positions
+SPLIT_LEN = 16  # PROMPT + DECODE rounded up to divide every model axis
+LENGTHS = {"": PROMPT + DECODE, "split_": SPLIT_LEN}  # result-key prefix: cache length
 # case: (config, (data, model), no token dropped: a mesh and one device agree)
 CASES = {
     "m-1x2": ("m", (1, 2), True), "m-2x1": ("m", (2, 1), True), "m-2x2": ("m", (2, 2), True),
@@ -69,17 +75,18 @@ for case, (name, shape, _) in CASES.items():
     key = (name, shape[1])
     if key not in single:  # one device: the params depend only on the model axis
         res = {{"logits": np.asarray(jax.jit(lambda p, t: forward(p, cfg, t, remat=False)[0])(params, toks))}}
-        last, cache = jax.jit(lambda p, t: prefill_step(p, cfg, t, cache_len={cache_len}))(
-            params, toks[:, :{prompt}])
-        res["prefill"] = np.asarray(last)
         step = jax.jit(lambda p, t, c: serve_decode_step(p, cfg, t, c))
-        nxt, toks_out, dec = jnp.argmax(last, -1), [], []
-        for i in range({decode}):
-            toks_out.append(np.asarray(nxt))
-            lg, cache = step(params, nxt[:, None].astype(jnp.int32), cache)
-            dec.append(np.asarray(lg[:, 0]))
-            nxt = jnp.argmax(lg[:, 0], -1)
-        res["greedy"], res["decode"] = np.stack(toks_out, 1), np.stack(dec, 1)
+        for tag, cache_len in {lengths!r}.items():
+            last, cache = jax.jit(lambda p, t: prefill_step(p, cfg, t, cache_len=cache_len))(
+                params, toks[:, :{prompt}])
+            res[tag + "prefill"] = np.asarray(last)
+            nxt, toks_out, dec = jnp.argmax(last, -1), [], []
+            for i in range({decode}):
+                toks_out.append(np.asarray(nxt))
+                lg, cache = step(params, nxt[:, None].astype(jnp.int32), cache)
+                dec.append(np.asarray(lg[:, 0]))
+                nxt = jnp.argmax(lg[:, 0], -1)
+            res[tag + "greedy"], res[tag + "decode"] = np.stack(toks_out, 1), np.stack(dec, 1)
         single[key] = res
     for k, v in single[key].items():
         out[f"{{case}}/single_{{k}}"] = v
@@ -108,15 +115,20 @@ for case, (name, shape, _) in CASES.items():
         _, hs = _hidden_states(params, cfg, toks, None, ctx, False)
         for k in ("moe_aux", "moe_overflow", "moe_dropped", "moe_peak"):
             out[f"{{case}}/mesh_{{k}}"] = np.asarray(hs[k])
-        last, cache = prefill_step(params, cfg, toks[:, :{prompt}], ctx=ctx, cache_len={cache_len})
-        out[f"{{case}}/prefill"] = last.numpy()
-        nxt, toks_out, dec = torch.argmax(last, -1), [], []
-        for i in range({decode}):
-            toks_out.append(nxt.numpy())
-            lg, cache = serve_decode_step(params, cfg, nxt[:, None].int(), cache, ctx=ctx)
-            dec.append(lg[:, 0].numpy())
-            nxt = torch.argmax(lg[:, 0], -1)
-        out[f"{{case}}/greedy"], out[f"{{case}}/decode"] = np.stack(toks_out, 1), np.stack(dec, 1)
+        for tag, cache_len in {lengths!r}.items():
+            last, cache = prefill_step(params, cfg, toks[:, :{prompt}], ctx=ctx,
+                                       cache_len=cache_len)
+            out[f"{{case}}/{{tag}}prefill"] = last.numpy()
+            nxt, toks_out, dec = torch.argmax(last, -1), [], []
+            for i in range({decode}):
+                toks_out.append(nxt.numpy())
+                lg, cache = serve_decode_step(params, cfg, nxt[:, None].int(), cache, ctx=ctx)
+                dec.append(lg[:, 0].numpy())
+                nxt = torch.argmax(lg[:, 0], -1)
+            out[f"{{case}}/{{tag}}greedy"] = np.stack(toks_out, 1)
+            out[f"{{case}}/{{tag}}decode"] = np.stack(dec, 1)
+            out[f"{{case}}/{{tag}}cache_positions"] = np.array(
+                [c.k.shape[2] for c in cache.values() if hasattr(c, "k")])
     tfull = params_from_reference(full, "cpu")
     specs = fit_tree(param_specs(tfull), tfull, mesh)
     back = unshard_tree(shard_tree(tfull, specs, mesh), specs, mesh)
@@ -146,7 +158,7 @@ def _inputs() -> dict:
 def runs(tmp_path_factory):
     wd = tmp_path_factory.mktemp("mesh_model")
     save_inputs(wd, _inputs())
-    fmt = dict(cases=CASES, prompt=PROMPT, decode=DECODE, cache_len=CACHE_LEN)
+    fmt = dict(cases=CASES, prompt=PROMPT, decode=DECODE, lengths=LENGTHS)
     with ThreadPoolExecutor(max_workers=1 + len(WORLDS)) as pool:
         ref = pool.submit(run_reference, REF_IMPORTS + REF_BODY.format(**fmt), 4, wd)
         ports = {w: pool.submit(run_port, PORT_IMPORTS + PORT_BODY.format(**fmt), w, wd, 420)
@@ -199,16 +211,35 @@ def test_mesh_moe_stats_match_the_reference_mesh(runs, case):
         assert int(ref[f"{case}/mesh_moe_dropped"]) > 0 and bool(ref[f"{case}/mesh_moe_overflow"])
 
 
-@pytest.mark.parametrize("case", sorted(c for c, (_, _, same) in CASES.items() if same))
-def test_mesh_prefill_and_greedy_decode_match_one_device(runs, case):
+def _check_decode(runs, case, tag):
     ref = runs[0]
     shape, ranks = _ranks(runs, case)
-    np.testing.assert_allclose(_by_data(ranks, shape, f"{case}/prefill"),
-                               ref[f"{case}/single_prefill"], **OUT)
-    np.testing.assert_allclose(_by_data(ranks, shape, f"{case}/decode"),
-                               ref[f"{case}/single_decode"], **OUT)
-    np.testing.assert_array_equal(_by_data(ranks, shape, f"{case}/greedy"),
-                                  ref[f"{case}/single_greedy"])
+    np.testing.assert_allclose(_by_data(ranks, shape, f"{case}/{tag}prefill"),
+                               ref[f"{case}/single_{tag}prefill"], **OUT)
+    np.testing.assert_allclose(_by_data(ranks, shape, f"{case}/{tag}decode"),
+                               ref[f"{case}/single_{tag}decode"], **OUT)
+    np.testing.assert_array_equal(_by_data(ranks, shape, f"{case}/{tag}greedy"),
+                                  ref[f"{case}/single_{tag}greedy"])
+
+
+@pytest.mark.parametrize("case", sorted(c for c, (_, _, same) in CASES.items() if same))
+def test_mesh_prefill_and_greedy_decode_match_one_device(runs, case):
+    _check_decode(runs, case, "")
+
+
+@pytest.mark.parametrize("case", sorted(c for c, (_, _, same) in CASES.items() if same))
+def test_split_k_prefill_and_greedy_decode_match_one_device(runs, case):
+    _check_decode(runs, case, "split_")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_the_cache_splits_its_positions_where_the_model_axis_divides_them(runs, case):
+    (_, model), ranks = _ranks(runs, case)
+    for tag, length in LENGTHS.items():
+        want = length // model if length % model == 0 else length
+        for r in ranks:
+            held = r[f"{case}/{tag}cache_positions"]
+            assert len(held) and set(held.tolist()) == {want}, (tag, held)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
