@@ -146,6 +146,21 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            off) within 1e-5 relative of one rank's on the card, no drops;
            a greedy decode of 4 tokens from a 64-token prompt on the mesh
            equal to one rank's.  Launches no sort kernel (checked)
+  lm_tp    tensor parallelism over "model": four gloo ranks on the card,
+           (data=1, model=4), qwen3-0.6b at full size: (a) train --mesh, 2
+           steps, step 1 against lm_train's; (b) prefill 128 and 16 greedy
+           tokens, the decode cache split over the ranks, against one card;
+           (c) float32 at 2 layers against one rank; (d) each rank's card
+           peak and counted collectives over a train and a decode step
+           against the dry-run of the same steps (fake CUDA tensors)
+  lm_ssm_tp  lm_tp's checks for Mamba-2 split over "model": mamba2-1.3b at
+           full width (64 SSM heads, 16 a rank), 4 of 48 layers; step 1
+           against one NCCL rank's (data=1, model=1) step; each rank's SSM
+           state 1/4 of one card's, its conv window 1/4 of the x channels
+           and all of B / C
+  dryrun   repro_torch.launch.dryrun over every pod cell on fake CUDA
+           tensors: every cell OK, no Mamba cell with whole blocks; peaks a
+           rank, the Mamba cells' apart
 
 The mesh phases' lines carry the card's name and power limit as nvidia-smi
 gives them.  Then the kernels line (launches on every path, time per
@@ -255,6 +270,17 @@ MESH_CHECK_LAYERS, MESH_CHECK_RTOL, MESH_PROMPT, MESH_DECODE = 2, 1e-5, 64, 4
 TP_RANKS, TP_SPEC, TP_STEPS, TP_LOSS_RTOL = 4, "data=1,model=4", 2, 2e-2
 TP_CHECK_LAYERS, TP_CHECK_RTOL, TP_CHECK_LOGITS = 2, 1e-6, 1e-5
 TP_MEMORY_SHARE = 0.10
+# lm_ssm_tp: Mamba-2 over "model" on the same four gloo ranks at (data=1,
+# model=4): mamba2-1.3b at full width (src/repro/configs/mamba2_1_3b.py:
+# d_model 2048, 64 SSM heads of 64, state 128, vocabulary 50,280, bf16,
+# random weights from seed 0), 4 of its 48 layers.  (a) train --mesh at
+# lm_train's batch, seq, lr and seed, 2 steps: step 1's loss within
+# TP_LOSS_RTOL of one NCCL rank's (data=1, model=1) step 1 on the same
+# params and batch.  (b) lm_tp's decode: each rank's SSM state exactly 1/4
+# of one card's, its conv window 1/4 of the x channels plus all of B / C.
+# (c) float32 at TP_CHECK_LAYERS layers, (d) card peaks and collectives
+# against the dry-run: lm_tp's bounds.
+SSM_ARCH, SSM_LAYERS = "mamba2-1.3b", 4
 DRYRUN_JOBS = 8  # dryrun: the pod sweep's cells traced at once
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
@@ -1932,6 +1958,26 @@ def _measured_train_step(real, log: list, last: dict, records: list):
     return measured
 
 
+def _ssm_arch() -> str:
+    """mamba2-1.3b at SSM_LAYERS layers, registered in ARCHS (each spawned
+    process registers its own)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import ARCHS
+
+    name = f"{SSM_ARCH}-{SSM_LAYERS}l"
+    ARCHS[name] = replace(ARCHS[SSM_ARCH], name=name, n_layers=SSM_LAYERS)
+    return name
+
+
+def _cache_bytes(cache) -> tuple:
+    """(the bytes of a decode cache's attention K / V and Mamba SSM states,
+    those of its Mamba conv windows)."""
+    state = sum(c.ssm.nbytes if hasattr(c, "ssm") else c.k.nbytes + c.v.nbytes
+                for c in cache.values())
+    return state, sum(c.conv.nbytes for c in cache.values() if hasattr(c, "conv"))
+
+
 def _tp_decode(cfg, mesh, device, prompt_len: int, gen: int, measure: bool) -> dict:
     """Prefill ``prompt_len`` tokens and ``gen`` greedy steps of ``cfg``
     (random weights from seed 0) at batch LM_BATCH: one card's decode, then
@@ -1954,7 +2000,7 @@ def _tp_decode(cfg, mesh, device, prompt_len: int, gen: int, measure: bool) -> d
     out = {"one": {"logits": []}, "mesh": {"logits": [], "tokens": [], "ms": []}}
     with torch.no_grad():
         last, cache = prefill_step(full, cfg, prompts, cache_len=cache_len)
-        one_bytes = sum(c.k.nbytes + c.v.nbytes for c in cache.values())
+        one_bytes = _cache_bytes(cache)
         nxt, tokens = torch.argmax(last, -1), []
         out["one"]["logits"].append(last.float())
         for _ in range(gen):
@@ -1971,8 +2017,8 @@ def _tp_decode(cfg, mesh, device, prompt_len: int, gen: int, measure: bool) -> d
         last, cache = prefill_step(params, cfg, prompts, ctx=ctx, cache_len=cache_len)
         torch.cuda.synchronize()
         out["mesh"]["prefill_ms"] = (time.perf_counter() - t0) * 1e3
-        out["mesh"]["cache_bytes"] = sum(c.k.nbytes + c.v.nbytes for c in cache.values())
-        out["one"]["cache_bytes"] = one_bytes
+        out["mesh"]["cache_bytes"], out["mesh"]["conv_bytes"] = _cache_bytes(cache)
+        out["one"]["cache_bytes"], out["one"]["conv_bytes"] = one_bytes
         out["mesh"]["logits"].append(last.float())
         for i, tok in enumerate(tokens):
             other = None
@@ -2015,10 +2061,12 @@ def _tp_compare(label: str, got: dict, bf16: bool) -> dict:
             "greedy_tokens_equal": same}
 
 
-def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "cuda") -> None:
-    """One rank of phase lm_tp: train --mesh data=1,model=4 at qwen3-0.6b's
-    full size, then the bf16 decode at full size and the float32 check at
-    TP_CHECK_LAYERS layers, each against one card's."""
+def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "cuda",
+            arch: str = LM_ARCH) -> None:
+    """One rank of phase lm_tp (``arch`` qwen3-0.6b at full size) or
+    lm_ssm_tp (``_ssm_arch()``): train --mesh data=1,model=4, then the bf16
+    decode and the float32 check at TP_CHECK_LAYERS layers, each against
+    one card's."""
     from dataclasses import replace
 
     from repro_torch.configs.base import ARCHS
@@ -2032,6 +2080,8 @@ def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "
     from repro_torch.train.steps import loss_fn
     from repro_torch.tree import from_paths, paths
 
+    _ssm_arch()
+    label = "lm_tp" if arch == LM_ARCH else "lm_ssm_tp"
     device = torch.device(device_type)
     if device_type == "cuda":
         torch.cuda.set_device(0)
@@ -2042,7 +2092,7 @@ def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "
         log, last, steps = [], {}, []
         t0 = time.perf_counter()
         losses, out = _run_train(
-            train, ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            train, ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
                     "--steps", str(TP_STEPS), "--lr", TRAIN_LR, "--log-every", "1",
                     "--mesh", TP_SPEC, "--dist-backend", "gloo", "--device", device_type],
             lambda real: _measured_train_step(real, log, last, steps))
@@ -2054,15 +2104,16 @@ def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "
         torch.cuda.empty_cache()
         mesh = Mesh((1, TP_RANKS), ("data", "model"))
         report["coords"] = mesh.coords
-        cfg = ARCHS[LM_ARCH]
+        cfg = ARCHS[arch]
         dec = _tp_decode(cfg, mesh, device, LM_PROMPT, LM_GEN, measure=True)
-        report["decode"] = {"compare": _tp_compare("lm_tp decode", dec, bf16=True),
+        report["decode"] = {"compare": _tp_compare(f"{label} decode", dec, bf16=True),
                             **{k: v for k, v in dec["mesh"].items() if k not in ("logits", "tokens")},
-                            "one_card_cache_bytes": dec["one"]["cache_bytes"]}
+                            "one_card_cache_bytes": dec["one"]["cache_bytes"],
+                            "one_card_conv_bytes": dec["one"]["conv_bytes"]}
         del dec
         torch.cuda.empty_cache()
         # (c) float32 at TP_CHECK_LAYERS layers, TF32 off
-        f32 = replace(cfg, name=f"{LM_ARCH}-{TP_CHECK_LAYERS}l-f32", n_layers=TP_CHECK_LAYERS,
+        f32 = replace(cfg, name=f"{arch}-{TP_CHECK_LAYERS}l-f32", n_layers=TP_CHECK_LAYERS,
                       param_dtype=torch.float32, compute_dtype=torch.float32)
         tf32 = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2090,7 +2141,7 @@ def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "
                             "one_rank": loss_and_norm(full, whole, ShardCtx(), None)}
             del full, whole
             dec = _tp_decode(f32, mesh, device, 64, 8, measure=False)
-            check_report["decode"] = _tp_compare("lm_tp float32 decode", dec, bf16=False)
+            check_report["decode"] = _tp_compare(f"{label} float32 decode", dec, bf16=False)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = tf32
         report["check"] = check_report
@@ -2101,9 +2152,10 @@ def tp_rank(rank: int, world: int, store: str, result: str, device_type: str = "
         dist.destroy_process_group()
 
 
-def tp_dryrun(rank: int, device_type: str, train_kw: dict) -> dict:
-    """The dry-run of lm_tp's train step and first decode step as ``rank``
-    of a fake (data=1, model=4) world, on fake tensors of ``device_type``."""
+def tp_dryrun(rank: int, device_type: str, train_kw: dict, arch: str = LM_ARCH) -> dict:
+    """The dry-run of lm_tp's (``arch``) train step and first decode step as
+    ``rank`` of a fake (data=1, model=4) world, on fake tensors of
+    ``device_type``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs.base import ARCHS
@@ -2111,7 +2163,8 @@ def tp_dryrun(rank: int, device_type: str, train_kw: dict) -> dict:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.optim.adamw import OptConfig
 
-    cfg = ARCHS[LM_ARCH]
+    _ssm_arch()
+    cfg = ARCHS[arch]
     device = torch.device(device_type)
     out = {}
     with dryrun.fake_world(TP_RANKS, rank):
@@ -2139,17 +2192,49 @@ def phase_lm_tp(kernels, device, lm_train: dict) -> dict:
     """Four gloo ranks on the card train, prefill and decode qwen3-0.6b with
     its heads, FFN and decode cache split over "model"; then the dry-run of
     the same steps, each rank against its card readings."""
+    return _tp_phase(device, LM_ARCH, "lm_tp", lm_train["full_size"]["losses"][0], "lm_train's")
+
+
+def phase_lm_ssm_tp(kernels, device) -> dict:
+    """lm_tp's checks on mamba2-1.3b at full width (SSM_LAYERS layers), its
+    SSM heads, conv channels and state split over "model": first one NCCL
+    rank's (data=1, model=1) step, the train reference."""
+    from repro_torch.configs.base import ARCHS
+    from repro_torch.launch import train
+
+    arch = _ssm_arch()
+    try:  # registered for this phase only: the dry-run sweep reads ARCHS
+        kernels.reset_launch_counts()
+        losses, _ = _run_train(
+            train, ["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                    "--steps", "1", "--lr", TRAIN_LR, "--log-every", "1",
+                    "--mesh", "data=1,model=1", "--dist-backend", "nccl"])
+        check(not dist.is_initialized(), "lm_ssm_tp: the driver left its NCCL group up")
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        check(not launches, f"lm_ssm_tp: one rank's step launched sort kernels {launches}")
+        torch.cuda.empty_cache()
+        return {"one_rank_step1_loss": losses[0],
+                **_tp_phase(device, arch, "lm_ssm_tp", losses[0], "one rank's (1, 1) step 1")}
+    finally:
+        ARCHS.pop(arch, None)
+
+
+def _tp_phase(device, arch: str, label: str, want: float, what: str) -> dict:
+    """Four gloo ranks (``tp_rank``) and the dry-run of their steps
+    (``tp_dryrun``) for ``arch``; step 1's loss against ``want`` (``what``)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    work = os.path.join(ROOT, "build", "lm_tp")
+    from repro_torch.configs.base import ARCHS
+
+    work = os.path.join(ROOT, "build", label)
     os.makedirs(work, exist_ok=True)
     store, result = os.path.join(work, f"store.{os.getpid()}"), os.path.join(work, "result")
     for path in [store] + [f"{result}.{r}.json" for r in range(TP_RANKS)]:
         if os.path.exists(path):
             os.remove(path)
     t0 = time.perf_counter()
-    _spawn(tp_rank, (TP_RANKS, store, result), TP_RANKS)
+    _spawn(tp_rank, (TP_RANKS, store, result, device.type, arch), TP_RANKS)
     seconds = time.perf_counter() - t0
     reports = []
     for r in range(TP_RANKS):
@@ -2157,34 +2242,39 @@ def phase_lm_tp(kernels, device, lm_train: dict) -> dict:
             reports.append(json.load(f))
     r0 = reports[0]
     # (a) train --mesh
-    check(all(rep["losses"] == r0["losses"] for rep in reports), "lm_tp: the ranks' losses differ")
+    check(all(rep["losses"] == r0["losses"] for rep in reports), f"{label}: the ranks' losses differ")
     check(len(r0["losses"]) == TP_STEPS and all(np.isfinite(r0["losses"] + r0["grad_norms"])),
-          f"lm_tp: losses {r0['losses']}")
-    want = lm_train["full_size"]["losses"][0]
+          f"{label}: losses {r0['losses']}")
     rel = abs(r0["losses"][0] - want) / abs(want)
-    check(rel <= TP_LOSS_RTOL, f"lm_tp: step-1 loss {r0['losses'][0]} against lm_train's {want}")
+    check(rel <= TP_LOSS_RTOL, f"{label}: step-1 loss {r0['losses'][0]} against {what} {want}")
     launches = {}
     for rep in reports:
         for k, v in rep["kernel_launches"].items():
             launches[k] = launches.get(k, 0) + v
-    check(not launches, f"lm_tp: the TP path launched sort kernels {launches}")
-    # (b) the split cache holds a quarter of one card's
+    check(not launches, f"{label}: the TP path launched sort kernels {launches}")
+    # (b) the split cache holds a quarter of one card's (attention K / V, SSM
+    # state); a conv window a quarter of the x channels and all of B / C
+    mc = ARCHS[arch].mamba_cfg()
+    bc = 2 * mc.n_groups * mc.d_state
     for rep in reports:
         d = rep["decode"]
         check(d["cache_bytes"] * TP_RANKS == d["one_card_cache_bytes"],
-              f"lm_tp rank {rep['rank']}: cache {d['cache_bytes']} of {d['one_card_cache_bytes']}")
+              f"{label} rank {rep['rank']}: cache {d['cache_bytes']} of {d['one_card_cache_bytes']}")
+        conv = d["one_card_conv_bytes"] // mc.conv_dim * (mc.d_inner // TP_RANKS + bc)
+        check(d["conv_bytes"] == conv,
+              f"{label} rank {rep['rank']}: conv windows {d['conv_bytes']}, want {conv}")
     # (c) float32 against one rank
     mesh_m, one_m = r0["check"]["mesh"], r0["check"]["one_rank"]
     check(all(rep["check"]["mesh"] == mesh_m for rep in reports),
-          "lm_tp check: the ranks' numbers differ")
+          f"{label} check: the ranks' numbers differ")
     rel_check = {k: abs(mesh_m[k] - one_m[k]) / abs(one_m[k]) for k in ("loss", "grad_norm")}
     check(all(v <= TP_CHECK_RTOL for v in rel_check.values()),
-          f"lm_tp check: mesh {mesh_m} against one rank {one_m}")
+          f"{label} check: mesh {mesh_m} against one rank {one_m}")
     # (d) the dry-run of the same steps, one process a rank
     t1 = time.perf_counter()
     with ProcessPoolExecutor(TP_RANKS, mp_context=multiprocessing.get_context("spawn")) as pool:
         traced = list(pool.map(tp_dryrun, range(TP_RANKS), [device.type] * TP_RANKS,
-                               [rep["train"][0] for rep in reports]))
+                               [rep["train"][0] for rep in reports], [arch] * TP_RANKS))
     dryrun_seconds = time.perf_counter() - t1
     memory = []
     for rep, tr in zip(reports, traced):
@@ -2194,9 +2284,9 @@ def phase_lm_tp(kernels, device, lm_train: dict) -> dict:
             got_b = card["card_peak_bytes"]
             share = abs(got_b - want_b) / want_b
             check(share <= TP_MEMORY_SHARE,
-                  f"lm_tp rank {rep['rank']} {kind}: card peak {got_b} against the dry-run's {want_b}")
+                  f"{label} rank {rep['rank']} {kind}: card peak {got_b} against the dry-run's {want_b}")
             check(card["collectives"] == tr[kind]["collectives"],
-                  f"lm_tp rank {rep['rank']} {kind}: counted collectives differ from the dry-run's")
+                  f"{label} rank {rep['rank']} {kind}: counted collectives differ from the dry-run's")
             row[kind] = {"card_peak_bytes": got_b, "dryrun_peak_bytes": want_b,
                          "off_by_share": (got_b - want_b) / want_b, "other_bytes": card["other_bytes"],
                          "collective_bytes": card["collectives"]["total_bytes"],
@@ -2204,10 +2294,10 @@ def phase_lm_tp(kernels, device, lm_train: dict) -> dict:
                          "dryrun_flops": tr[kind]["flops"], "trace_s": tr[kind]["trace_s"]}
         memory.append(row)
     return {
-        "arch": LM_ARCH, "mesh": TP_SPEC, "ranks": TP_RANKS,
+        "arch": arch, "mesh": TP_SPEC, "ranks": TP_RANKS,
         "backend": "gloo (host-staged CUDA tensors; times are not TP over NCCL)",
         "train": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TP_STEPS, "losses": r0["losses"],
-                  "grad_norms": r0["grad_norms"], "step1_loss_rel_to_lm_train": rel,
+                  "grad_norms": r0["grad_norms"], "step1_loss_rel": rel, "step1_reference": what,
                   "tolerance": TP_LOSS_RTOL, "ms_per_step_rank0": r0["ms_per_step"],
                   "rank_bytes": [{"params": rep["param_bytes"], "moments": rep["moment_bytes"]}
                                  for rep in reports]},
@@ -2216,6 +2306,8 @@ def phase_lm_tp(kernels, device, lm_train: dict) -> dict:
                    "ms_per_token_rank0": r0["decode"]["ms"],
                    "cache_bytes_rank": r0["decode"]["cache_bytes"],
                    "cache_bytes_one_card": r0["decode"]["one_card_cache_bytes"],
+                   "conv_bytes_rank": r0["decode"]["conv_bytes"],
+                   "conv_bytes_one_card": r0["decode"]["one_card_conv_bytes"],
                    "compare": r0["decode"]["compare"], "tolerance": LOGIT_TOLERANCE},
         "float32_check": {"layers": TP_CHECK_LAYERS, "tf32": False, "mesh": mesh_m,
                           "one_rank": one_m, "rel": rel_check, "tolerance": TP_CHECK_RTOL,
@@ -2253,8 +2345,13 @@ def phase_dryrun() -> dict:
             "collective_gib": rec["collectives"]["total_bytes"] / 2**30,
             "trace_s": rec["lower_s"], "notes": rec["notes"]}
     over = sorted(k for k, v in cells.items() if v["peak_gib"] * 2**30 > 80e9)
+    from repro_torch.configs.base import ARCHS
+
+    mamba = {k: v["peak_gib"] for k, v in cells.items() if "mamba" in ARCHS[k.split()[0]].pattern}
+    check(not any(cells[k]["notes"] for k in mamba),
+          f"dryrun: Mamba cells with whole blocks {[k for k in mamba if cells[k]['notes']]}")
     return {"mesh": "pod (data=16, model=16), rank 0", "device": "fake cuda", "jobs": DRYRUN_JOBS,
-            "seconds": seconds, "cells": cells, "lines": len(lines),
+            "seconds": seconds, "mamba_peak_gib": mamba, "cells": cells, "lines": len(lines),
             "over_80gb": over, "skipped": [ln for ln in lines if ln.startswith("SKIP")]}
 
 
@@ -2395,6 +2492,7 @@ def main() -> None:
                          ("lm_train", lambda: phase_lm_train(kernels, device)),
                          ("lm_mesh", lambda: phase_lm_mesh(kernels, device, results["lm_train"])),
                          ("lm_tp", lambda: phase_lm_tp(kernels, device, results["lm_train"])),
+                         ("lm_ssm_tp", lambda: phase_lm_ssm_tp(kernels, device)),
                          ("dryrun", phase_dryrun)):
         print(smi, flush=True)
         t0 = time.perf_counter()

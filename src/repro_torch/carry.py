@@ -139,14 +139,15 @@ def shard_from_reference(tree, specs, mesh, device="cuda"):
     """This rank's block of the reference's params or optimizer state
     (nested dicts of arrays) under ``specs`` (``distributed.sharding``),
     each spec fitted to its whole leaf, placed as ``tensor_from_reference``
-    places it; only the block is copied to ``device``."""
-    from repro_torch.distributed.sharding import block_slices, fit_spec
+    places it; only the block is copied to ``device``.  The reference's
+    whole leaves are in its own order: a Mamba-2 leaf's block is cut
+    through its ``SegmentedAxis`` (``sharding.take_block``)."""
+    from repro_torch.distributed.sharding import fit_spec, take_block
 
     if isinstance(tree, dict):
         return {k: shard_from_reference(v, specs[k], mesh, device) for k, v in tree.items()}
     a = np.asarray(tree)
-    return tensor_from_reference(a[block_slices(a.shape, fit_spec(a.shape, specs, mesh), mesh)],
-                                 device)
+    return tensor_from_reference(take_block(a, fit_spec(a.shape, specs, mesh), mesh), device)
 
 
 def cache_from_reference(cache: dict, device="cuda") -> dict:

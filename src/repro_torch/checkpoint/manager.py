@@ -23,9 +23,11 @@ On a mesh (``shardings=`` the tree's specs, ``mesh=`` its
 ``launch.mesh.Mesh``) checkpoints stay whole, as the reference stores
 them: ``save`` gathers every leaf from the ranks' blocks, a collective
 that every rank enters before any thread starts, and rank 0 alone writes.
-``restore`` cuts each rank's block of each whole leaf (``fit_spec``), so a
-checkpoint restores onto any mesh, or onto one device, whatever mesh
-saved it.
+``restore`` cuts each rank's block of each whole leaf (``fit_spec``,
+``take_block``), so a checkpoint restores onto any mesh, or onto one
+device, whatever mesh saved it.  A Mamba-2 leaf's block holds its heads'
+columns (a ``SegmentedAxis``), and its whole leaf on disk is in the
+reference's column order either way.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.carry import tensor_from_reference
-from repro_torch.distributed.sharding import block_slices, fit_spec, unshard_tree
+from repro_torch.distributed.sharding import fit_spec, take_block, unshard_tree
 
 __all__ = ["CheckpointManager"]
 
@@ -215,7 +217,7 @@ class CheckpointManager:
         if len(host) != len(flat_like):
             raise ValueError(f"checkpoint has {len(host)} leaves, expected {len(flat_like)}")
         if shardings is not None:
-            host = [h if np.ndim(h) == 0 else h[block_slices(h.shape, fit_spec(h.shape, spec, mesh), mesh)]
+            host = [h if np.ndim(h) == 0 else take_block(h, fit_spec(h.shape, spec, mesh), mesh)
                     for h, spec in zip(host, _leaf_specs(like, shardings))]
         leaves = iter([_restore_leaf(h, l) for h, l in zip(host, flat_like)])
         return _unflatten(like, leaves), step

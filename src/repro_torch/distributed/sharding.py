@@ -19,37 +19,56 @@ the gathers.  Here every rank is a process that holds its own block:
   the stored spec has it: the embedding table vocab-sharded, the expert
   stacks expert-sharded, and Megatron tensor parallelism in the dense
   layers: ``wq`` / ``wk`` / ``wv`` / ``w_in`` / ``w_gate`` (and their
-  biases) column-parallel, ``wo`` / ``w_out`` row-parallel.  Three
-  exceptions (``tp_layout``): where the heads do not divide "model"
-  (qwen2-7b's 28 at 16, the case the reference pins apart,
-  ``repro/models/transformer.py:439``) the attention weights are gathered
-  whole and every rank of a model group runs every head; where the KV
-  heads do not divide it (GQA with fewer KV heads than ranks) ``wk`` /
-  ``wv`` are gathered whole and each rank slices the KV heads its query
-  heads read; Mamba-2 blocks are gathered whole (their split over "model"
-  is queued);
+  biases) column-parallel, ``wo`` / ``w_out`` row-parallel; in Mamba-2
+  blocks ``in_proj`` and the conv column-parallel by heads, ``out_proj``
+  row-parallel, and the per-head vectors (``A_log``, ``D_skip``,
+  ``dt_bias``) and the gated norm's scale split by heads too.  Two
+  exceptions where a split does not divide (``tp_layout``): where the
+  heads do not divide "model" (qwen2-7b's 28 at 16, the case the
+  reference pins apart, ``repro/models/transformer.py:439``) the
+  attention weights are gathered whole and every rank of a model group
+  runs every head, and where the KV heads do not divide it (GQA with
+  fewer KV heads than ranks) ``wk`` / ``wv`` are gathered whole and each
+  rank slices the KV heads its query heads read; a Mamba-2 block whose
+  SSM heads (or ``B`` / ``C`` width) do not divide "model" is gathered
+  whole, every rank running every head;
+* a Mamba-2 block's ``in_proj`` columns are ``(z, x, B, C, dt)`` and its
+  conv channels ``(x, B, C)``: a rank's heads are not a contiguous block
+  of either.  Their "model" entry is a ``SegmentedAxis``: rank ``r``
+  stores the ``r``-th piece of every segment (its heads' ``z``, ``x``
+  and ``dt`` columns and ``1/model`` of ``B`` and ``C``), so every leaf
+  stays evenly split, and computes with ``B`` / ``C`` whole (all-gathered
+  over "model", their gradient reduce-scattered back).  Whole leaves
+  (``unshard_tree``, checkpoints, the reference's arrays) stay in the
+  reference's column order; ``take_block`` cuts a block of one;
 * ``gather_leaf`` takes a leaf from its stored block to its compute
   layout (an all-gather over the axes it is stored over but not computed
   over), and in the backward reduces the gradient back to the block: a
   reduce-scatter over a batch axis the leaf is stored over, a sum over a
   batch axis it is replicated over.  A leaf computed split over "model"
-  gets its own block's gradient there.  A leaf gathered whole over
-  "model" whose every rank computes the same thing (the whole-heads
-  attention, Mamba) holds the whole gradient on each rank and keeps its
-  slice; one whose ranks each compute their own share (the router, on
-  each rank's own tokens; under split heads the qk-norm scales and whole
-  ``wk`` / ``wv``, on each rank's heads) is summed over "model" and
+  gets its own block's gradient there, and one stored whole but computed
+  split (the Mamba per-head vectors) gets every rank's slice gathered
+  back.  A leaf gathered whole over "model" whose every rank computes the
+  same thing (the whole-heads attention and Mamba blocks) holds the whole
+  gradient on each rank and keeps its slice; one whose ranks each compute
+  their own share (the router, on each rank's own tokens; under split
+  heads the qk-norm scales and whole ``wk`` / ``wv``, on each rank's
+  heads; Mamba's ``B`` / ``C`` columns) is summed over "model" and
   reduce-scattered back.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from functools import lru_cache, partial
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
+    "SegmentedAxis",
     "batch_specs",
+    "block_index",
     "block_slices",
     "cache_specs",
     "compute_specs",
@@ -64,6 +83,7 @@ __all__ = [
     "shard_tree",
     "spec_axes",
     "splits_positions",
+    "take_block",
     "tp_layout",
     "unshard_tree",
     "TPLayout",
@@ -99,8 +119,88 @@ def spec_axes(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+# ------------------------------------------------------- segmented dims ---
+class SegmentedAxis(str):
+    """A mesh axis name on a dim made of segments of ``sizes``, each split
+    evenly over the axis: rank ``r``'s block is the ``r``-th piece of every
+    segment, in order, and all of each segment listed in ``whole``.  The
+    segments in ``shared`` are read whole in the compute layout
+    (``compute_specs``).
+
+    It compares and hashes as the axis name, so every rule that reads a
+    spec reads it as that axis.  It ``fits`` an axis of ``n`` ranks when
+    ``n`` divides every size and every count in ``align``; where it does
+    not, ``fit_spec`` puts ``fallback`` in its place (the plain axis name,
+    a contiguous split, or ``None``).  Mamba-2's ``in_proj`` columns are
+    ``(z, x, B, C, dt)``:
+
+    >>> a = SegmentedAxis("model", (4, 4, 2, 2, 2))
+    >>> a == "model", a.index(2, 1), a.with_whole((2, 3)).index(2, 1)
+    (True, [2, 3, 6, 7, 9, 11, 13], [2, 3, 6, 7, 8, 9, 10, 11, 13])
+    """
+
+    def __new__(cls, name: str, sizes, whole=(), align=(), fallback: Optional[str] = "model",
+                shared=()):
+        self = super().__new__(cls, name)
+        self.sizes, self.whole, self.align = tuple(sizes), tuple(whole), tuple(align)
+        self.fallback, self.shared = fallback, tuple(shared)
+        return self
+
+    def __reduce__(self):
+        return SegmentedAxis, (str(self), self.sizes, self.whole, self.align, self.fallback,
+                               self.shared)
+
+    def fits(self, n: int) -> bool:
+        return all(s % n == 0 for s in self.sizes + self.align)
+
+    def with_whole(self, whole) -> "SegmentedAxis":
+        return SegmentedAxis(str(self), self.sizes, whole, self.align, self.fallback, self.shared)
+
+    def index(self, n: int, r: int) -> list:
+        """The positions in the whole dim of rank ``r``'s block of ``n``."""
+        out, start = [], 0
+        for i, s in enumerate(self.sizes):
+            lo, hi = (0, s) if i in self.whole else (r * s // n, (r + 1) * s // n)
+            out.extend(range(start + lo, start + hi))
+            start += s
+        return out
+
+
+def _mamba_widths(tree) -> Optional[tuple]:
+    """``(d_inner, n_groups * d_state, n_heads)`` of the Mamba-2 blocks in
+    a param tree (read off their leaves' shapes), ``None`` if it has none."""
+    if not isinstance(tree, dict):
+        return None
+    m = tree.get("mamba")
+    if isinstance(m, dict):
+        di, nh = m["norm"]["scale"].shape[-1], m["A_log"].shape[-1]
+        return di, (m["conv_w"].shape[-1] - di) // 2, nh
+    for v in tree.values():
+        found = _mamba_widths(v)
+        if found:
+            return found
+    return None
+
+
+def _mamba_axis(names: tuple, widths: tuple) -> Optional[SegmentedAxis]:
+    """The "model" entry of a Mamba-2 leaf split by heads: ``in_proj``'s
+    columns ``(z, x, B, C, dt)``, the conv's channels ``(x, B, C)``."""
+    di, gs, nh = widths
+    if names[-1] in ("w", "b") and names[-2] == "in_proj":
+        return SegmentedAxis("model", (di, di, gs, gs, nh), shared=(2, 3))
+    if names[-1] in ("conv_w", "conv_b"):
+        return SegmentedAxis("model", (di, gs, gs), align=(nh,), shared=(1, 2))
+    return None
+
+
 # ------------------------------------------------------------------ rules ---
-def _param_spec(names: tuple, leaf) -> tuple:
+def _param_spec(names: tuple, leaf, mamba: Optional[tuple] = None) -> tuple:
+    spec = _reference_spec(names, leaf)
+    axis = _mamba_axis(names, mamba) if mamba and "mamba" in names else None
+    return spec if axis is None else tuple(axis if e == "model" else e for e in spec)
+
+
+def _reference_spec(names: tuple, leaf) -> tuple:
     nd = _ndim(leaf)
     grouped = bool(names) and names[0] == "blocks"  # stacked (G, ...) leaves
     lead = (None,) if grouped else ()
@@ -142,8 +242,10 @@ def _param_spec(names: tuple, leaf) -> tuple:
 
 def param_specs(params) -> Any:
     """A spec for every leaf of ``params`` (tensors of any device, ``meta``
-    included)."""
-    return map_with_path(_param_spec, params)
+    included, or arrays): the reference's, with the "model" entry of a
+    Mamba-2 block's ``in_proj`` and conv a ``SegmentedAxis`` (module
+    docstring)."""
+    return map_with_path(partial(_param_spec, mamba=_mamba_widths(params)), params)
 
 
 def _is_q(x) -> bool:
@@ -176,8 +278,15 @@ def opt_state_specs(state: dict, pspecs) -> dict:
 def cache_specs(cache, cfg) -> Any:
     """Specs of the decode cache: batch over ("pod", "data"); the sequence
     dim of attention caches over "model" (split-K decoding); Mamba states
-    shard heads and channels over "model"."""
+    shard heads over "model", and the conv window its ``x`` channels by
+    heads with the ``B`` / ``C`` channels whole on every rank (a
+    ``SegmentedAxis``; the reference splits the channels contiguously).
+    Where the heads do not split, the Mamba caches are whole."""
     bt = ("pod", "data")
+    mc = cfg.mamba_cfg()
+    di, gs, nh = mc.d_inner, mc.n_groups * mc.d_state, mc.n_heads
+    conv = SegmentedAxis("model", (di, gs, gs), whole=(1, 2), align=(nh,), fallback=None)
+    heads = SegmentedAxis("model", (nh,), align=(gs,), fallback=None)
 
     def one(path, leaf):
         kind = cfg.pattern[int(path[0][3:])]  # "posN"
@@ -187,8 +296,8 @@ def cache_specs(cache, cfg) -> Any:
                 return (None, bt, "model", None, None)
             return (None,)  # (G,) length
         if nd == 4:  # (G, B, k-1, conv_dim)
-            return (None, bt, None, "model")
-        return (None, bt, "model", None, None)  # (G, B, nh, ds, hp)
+            return (None, bt, None, conv)
+        return (None, bt, heads, None, None)  # (G, B, nh, ds, hp)
 
     return map_with_path(one, cache)
 
@@ -221,6 +330,8 @@ def fit_spec(shape, spec: tuple, mesh) -> tuple:
     for dim, entry in enumerate(spec):
         kept, rem = [], shape[dim]
         for ax in spec_axes(entry):
+            if isinstance(ax, SegmentedAxis) and ax in valid and not ax.fits(mesh.shape[ax]):
+                ax = ax.fallback
             if ax in valid and rem % mesh.shape[ax] == 0:
                 kept.append(ax)
                 rem //= mesh.shape[ax]
@@ -234,23 +345,30 @@ def fit_tree(specs, tree, mesh) -> Any:
 
 
 class TPLayout(NamedTuple):
-    """What a dense layer splits over "model" (module docstring)."""
+    """What a layer splits over "model" (module docstring)."""
     heads: bool       # attention heads: wq / wo column / row-parallel
     kv_heads: bool    # wk / wv too (else gathered whole)
     ffn: bool         # the dense FFN's hidden units
+    mamba: bool = False  # Mamba-2's SSM heads (B / C whole on every rank)
 
 
 def tp_layout(cfg, model: int) -> TPLayout:
     """The tensor-parallel layout of ``cfg`` over a "model" axis of
-    ``model`` ranks: a split wherever it divides.
+    ``model`` ranks: a split wherever it divides (Mamba-2: the SSM heads
+    and the ``B`` / ``C`` width, ``SegmentedAxis.fits``).
 
     >>> from repro_torch.configs.base import ARCHS
     >>> tp_layout(ARCHS["qwen3-0.6b"], 16), tp_layout(ARCHS["qwen2-7b"], 16).heads
-    (TPLayout(heads=True, kv_heads=False, ffn=True), False)
+    (TPLayout(heads=True, kv_heads=False, ffn=True, mamba=False), False)
+    >>> tp_layout(ARCHS["jamba-1.5-large-398b"], 16).mamba
+    True
     """
     heads = cfg.n_heads > 0 and cfg.n_heads % model == 0
+    mc = cfg.mamba_cfg()
+    mamba = "mamba" in cfg.pattern and mc.n_heads % model == 0 \
+        and (mc.n_groups * mc.d_state) % model == 0
     return TPLayout(heads, heads and cfg.n_kv_heads % model == 0,
-                    cfg.d_ff > 0 and cfg.d_ff % model == 0)
+                    cfg.d_ff > 0 and cfg.d_ff % model == 0, mamba)
 
 
 def _layer(path) -> str:
@@ -258,9 +376,15 @@ def _layer(path) -> str:
     return path[-2] if path[-1] in ("w", "b") and len(path) > 1 else path[-1]
 
 
+_MAMBA_SPLIT = ("in_proj", "out_proj", "conv_w", "conv_b")  # stored over "model" too
+_MAMBA_HEADS = ("A_log", "D_skip", "dt_bias", "scale")    # stored whole, computed split
+
+
 def _split_over_model(path, tp: TPLayout) -> bool:
     if "table" in path or ("moe" in path and path[-1] in ("w_in", "w_gate", "w_out")):
         return True
+    if "mamba" in path:
+        return tp.mamba and _layer(path) in _MAMBA_SPLIT
     if "attn" in path:
         return tp.heads and (_layer(path) in ("wq", "wo")
                              or (tp.kv_heads and _layer(path) in ("wk", "wv")))
@@ -286,18 +410,27 @@ def compute_specs(specs, cfg, model: int, ep_axis: str = "model") -> Any:
     tp = tp_layout(cfg, model)
 
     def one(path, spec):
+        if tp.mamba and "mamba" in path and _layer(path) in _MAMBA_HEADS:
+            return (None,) * (len(spec) - 1) + (ep_axis,)  # this rank's heads
         keep = _split_over_model(path, tp)
-        return tuple(e if keep and spec_axes(e) == (ep_axis,) else None for e in spec)
+        out = tuple(e if keep and spec_axes(e) == (ep_axis,) else None for e in spec)
+        # a Mamba rank reads B and C whole
+        return tuple(e.with_whole(e.shared) if isinstance(e, SegmentedAxis) else e for e in out)
 
     return map_with_path(one, specs)
 
 
 # ---------------------------------------------------------------- blocks ---
-def block_slices(shape, spec: tuple, mesh) -> tuple:
-    """The slices that cut this rank's block from a whole leaf of ``shape``
-    under the fitted ``spec`` (an entry's first axis the major one)."""
+def block_index(shape, spec: tuple, mesh) -> tuple:
+    """What cuts this rank's block from a whole leaf of ``shape`` under the
+    fitted ``spec``, a dim at a time: a slice (an entry's first axis the
+    major one), or for a ``SegmentedAxis`` the list of positions it
+    takes."""
     out = []
     for dim, entry in enumerate(spec):
+        if isinstance(entry, SegmentedAxis):
+            out.append(entry.index(mesh.shape[entry], mesh.coords[entry]))
+            continue
         idx, count = 0, 1
         for ax in spec_axes(entry):
             idx = idx * mesh.shape[ax] + mesh.coords[ax]
@@ -307,6 +440,27 @@ def block_slices(shape, spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+def block_slices(shape, spec: tuple, mesh) -> tuple:
+    """``block_index`` of a spec with no ``SegmentedAxis``: slices only."""
+    out = block_index(shape, spec, mesh)
+    if not all(isinstance(s, slice) for s in out):
+        raise ValueError(f"{spec} cuts segments: use take_block")
+    return out
+
+
+def take_block(a, spec: tuple, mesh):
+    """This rank's block of ``a`` (a whole tensor or numpy array) under the
+    fitted ``spec``; a copy where it takes segments, else a view."""
+    for dim, ix in enumerate(block_index(a.shape, spec, mesh)):
+        if isinstance(ix, slice):
+            a = a[(slice(None),) * dim + (ix,)]
+        elif isinstance(a, torch.Tensor):
+            a = a.index_select(dim, torch.tensor(ix, device=a.device))
+        else:
+            a = np.take(a, ix, axis=dim)
+    return a
+
+
 def shard_tree(tree, specs, mesh) -> Any:
     """This rank's block of every leaf of ``tree`` (whole leaves), each
     spec fitted to its leaf's shape first.  Blocks are copies, so the whole
@@ -314,7 +468,7 @@ def shard_tree(tree, specs, mesh) -> Any:
     def one(_, leaf, spec):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return leaf[block_slices(leaf.shape, fit_spec(tuple(leaf.shape), spec, mesh), mesh)].clone()
+        return take_block(leaf, fit_spec(tuple(leaf.shape), spec, mesh), mesh).clone()
 
     return map_with_path(one, tree, specs)
 
@@ -325,10 +479,22 @@ def _gather(t: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
     return t
 
 
+def _segments_source(entry: SegmentedAxis, n: int) -> list:
+    """For each position of the whole dim, its position among the ``n``
+    ranks' blocks laid end to end (rank 0's first where several hold it)."""
+    src = {}
+    for r in reversed(range(n)):
+        idx = entry.index(n, r)
+        for j, w in enumerate(idx):
+            src[w] = r * len(idx) + j
+    return [src[w] for w in range(sum(entry.sizes))]
+
+
 @torch.no_grad()
 def unshard_tree(tree, specs, mesh) -> Any:
     """The whole leaves from every rank's blocks: an all-gather of each
-    leaf over the axes of its (fitted) spec, on every rank."""
+    leaf over the axes of its (fitted) spec, on every rank; the positions
+    of a ``SegmentedAxis`` dim put back in the whole dim's order."""
     def one(_, leaf, spec):
         if not isinstance(leaf, torch.Tensor):
             return leaf
@@ -336,12 +502,66 @@ def unshard_tree(tree, specs, mesh) -> Any:
             axes = [a for a in spec_axes(entry) if mesh.shape[a] > 1]
             if axes:
                 leaf = _gather(leaf.contiguous(), dim, axes, mesh)
+            if axes and isinstance(entry, SegmentedAxis):
+                src = _segments_source(entry, mesh.shape[entry])
+                leaf = leaf.index_select(dim, torch.tensor(src, device=leaf.device))
         return leaf
 
     return map_with_path(one, tree, specs)
 
 
 # -------------------------------------------------- gathers for the step ---
+class _Segments:
+    """The all-gather over "model" of the segments a rank stores a piece of
+    and computes with whole (``stored`` -> ``compute``, two layouts of one
+    dim), and the reduce-scatter of their gradient back.  Index lists map
+    each layout's positions; a gathered piece's gradient is every rank's
+    sum."""
+
+    def __init__(self, dim: int, stored: SegmentedAxis, compute: SegmentedAxis, group):
+        self.dim, self.group = dim, group
+        self.sel, self.fwd, self.rs, self.back = _segment_maps(
+            stored.sizes, stored.whole, compute.whole, group.size, group.rank)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        d = self.dim
+        pieces = self.group.gather(t.index_select(d, _index(self.sel, t)).contiguous(), d)
+        return torch.cat([t, pieces], d).index_select(d, _index(self.fwd, t))
+
+    def backward(self, g: torch.Tensor) -> torch.Tensor:
+        d = self.dim
+        summed = self.group.reduce_scatter(g.index_select(d, _index(self.rs, g)), d)
+        return torch.cat([g, summed], d).index_select(d, _index(self.back, g))
+
+
+def _index(ix: list, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(ix, device=like.device)
+
+
+@lru_cache(maxsize=None)
+def _segment_maps(sizes: tuple, stored_whole: tuple, compute_whole: tuple, n: int, r: int):
+    """``_Segments``' index lists: the stored block's positions it sends
+    (``sel``); the compute block from the stored block and the gathered
+    pieces (``fwd``); the compute block's positions of every rank's pieces
+    (``rs``); the stored block from the compute block and the summed
+    pieces (``back``)."""
+    stored = SegmentedAxis("", sizes, stored_whole)
+    mine = stored.index(n, r)
+    want = stored.with_whole(compute_whole).index(n, r)
+    starts = np.cumsum((0,) + sizes)
+    shared = np.zeros(starts[-1], bool)
+    for i in set(compute_whole) - set(stored_whole):
+        shared[starts[i]:starts[i + 1]] = True
+    sel = [j for j, w in enumerate(mine) if shared[w]]
+    gathered = [w for q in range(n) for w in stored.index(n, q) if shared[w]]
+    src = {w: len(mine) + j for j, w in enumerate(gathered)}
+    src.update({w: j for j, w in enumerate(mine)})
+    pos = {w: j for j, w in enumerate(want)}
+    own = {mine[j]: k for k, j in enumerate(sel)}
+    return (sel, [src[w] for w in want], [pos[w] for w in gathered],
+            [len(want) + own[w] if w in own else pos[w] for w in mine])
+
+
 class _Plan:
     """How one leaf goes from its stored block to its compute layout and
     how its gradient comes back."""
@@ -349,12 +569,19 @@ class _Plan:
     def __init__(self, stored: tuple, compute: tuple, mesh, ep_axis: str, sum_ep: bool):
         self.mesh = mesh
         self.gather = []       # (dim, axes) to all-gather, major axis first
+        self.narrow = []       # dims stored whole over ep_axis and computed split
+        self.segments = None   # a _Segments over ep_axis
         gathered = {}
+        ep_size = mesh.shape.get(ep_axis, 1)
         for dim, (s, c) in enumerate(zip(stored, compute)):
             axes = [a for a in spec_axes(s) if a not in spec_axes(c) and mesh.shape[a] > 1]
             if axes:
                 self.gather.append((dim, axes))
                 gathered.update({a: dim for a in axes})
+            if ep_size > 1 and ep_axis in spec_axes(c) and ep_axis not in spec_axes(s):
+                self.narrow.append(dim)
+            if ep_size > 1 and isinstance(c, SegmentedAxis) and set(c.whole) - set(s.whole):
+                self.segments = _Segments(dim, s, c, mesh.group(ep_axis))
         batch = [a for a in mesh.axis_names if a != ep_axis and mesh.shape[a] > 1]
         self.scatter = [(gathered[a], a) for a in batch if a in gathered]
         self.psum = tuple(a for a in batch if a not in gathered)
@@ -366,17 +593,25 @@ class _Plan:
 
     @property
     def trivial(self) -> bool:
-        return not (self.gather or self.psum)
+        return not (self.gather or self.psum or self.narrow or self.segments)
 
     def forward(self, block: torch.Tensor) -> torch.Tensor:
         t = block
         for dim, axes in self.gather:
             t = _gather(t.contiguous(), dim, axes, self.mesh)
+        if self.segments is not None:
+            t = self.segments.forward(t)
+        for dim in self.narrow:
+            t = self.mesh.group(self.ep_axis).split(t, dim).clone()
         return t
 
     def backward(self, g: torch.Tensor) -> torch.Tensor:
         dtype = g.dtype
         g = g.float()
+        for dim in self.narrow:  # every rank's slice of a leaf stored whole
+            g = self.mesh.group(self.ep_axis).gather(g.contiguous(), dim)
+        if self.segments is not None:
+            g = self.segments.backward(g)
         for dim, ax in self.scatter:
             g = self.mesh.group(ax).reduce_scatter(g, dim)
         if self.psum:

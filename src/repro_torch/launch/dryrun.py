@@ -178,9 +178,9 @@ def build_cell(cfg, kind: str, inputs: dict, mesh, device, mode, *, cache_len: i
     meta = model_init(torch.Generator(), cfg, ep_shards=M, device="meta")
     stored = fit_tree(param_specs(meta), meta, mesh)
     notes = []
-    if "mamba" in cfg.pattern:
-        notes.append("Mamba-2 blocks run whole on every rank of a model group "
-                     "(their split over 'model' is queued)")
+    if "mamba" in cfg.pattern and not tp_layout(cfg, M).mamba:
+        notes.append(f"{cfg.mamba_cfg().n_heads} SSM heads do not divide model={M}: "
+                     "every rank runs every head")
     if cfg.n_heads and not tp_layout(cfg, M).heads:
         notes.append(f"{cfg.n_heads} heads do not divide model={M}: every rank runs every head")
     # the blocks' shapes, cut on meta tensors; the fakes are made in the mode

@@ -6,6 +6,18 @@ is a (Q x Q) masked product; across chunks a short loop carries the
 
   h_t = exp(a_t) * h_{t-1} + B_t (dt_t x_t),   a_t = -exp(A_log) * dt_t
   y_t = C_t . h_t + D_skip * x_t
+
+On a mesh the SSM heads split over a "model" group (``group=``, an
+``AxisGroup``; ``distributed.sharding`` lays the params out): rank ``r``
+holds heads ``[r nh/M, (r+1) nh/M)``: their columns of ``in_proj``'s ``z``,
+``x`` and ``dt`` and all of its ``B`` / ``C`` columns (each rank's heads
+read them whole), the matching conv channels, its slices of ``A_log``,
+``D_skip``, ``dt_bias`` and the norm's scale, and its rows of
+``out_proj``.  The input enters through ``copy_to``; the gated norm sums
+its squares over the group (the reference normalizes over all of
+``d_inner``); ``out_proj``'s partial outputs are summed by
+``reduce_from``.  A rank's cache holds its heads' SSM state and a conv
+window of its ``x`` channels and all of ``B`` / ``C``.
 """
 from __future__ import annotations
 
@@ -15,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.carry import check_device
+from repro_torch.exchange.group import copy_to, reduce_from
 
 from .layers import Params, linear, linear_init, normal, rmsnorm, rmsnorm_init
 
@@ -74,8 +87,18 @@ def mamba_init(gen, cfg: MambaConfig, dtype, device="cuda") -> Params:
     }
 
 
-def _split_proj(cfg: MambaConfig, zxbcdt: torch.Tensor):
-    di, gs = cfg.d_inner, cfg.n_groups * cfg.d_state
+def _heads(cfg: MambaConfig, group) -> tuple:
+    """``(first head, heads, d_inner)`` this rank computes: all of them with
+    no group, else its ``1 / group.size`` share."""
+    n, r = (1, 0) if group is None else (group.size, group.rank)
+    nh = cfg.n_heads // n
+    return r * nh, nh, nh * cfg.head_dim
+
+
+def _split_proj(cfg: MambaConfig, zxbcdt: torch.Tensor, di: int):
+    """``(z, xBC, dt)`` of ``in_proj``'s output, ``di`` channels of ``z``
+    and ``x`` (this rank's heads')."""
+    gs = cfg.n_groups * cfg.d_state
     return zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * gs], zxbcdt[..., 2 * di + 2 * gs:]
 
 
@@ -148,60 +171,95 @@ class MambaCache(NamedTuple):
     ssm: torch.Tensor    # (B, nh, ds, hp) float32 state
 
 
-def init_mamba_cache(cfg: MambaConfig, batch: int, dtype, device="cuda") -> MambaCache:
+def init_mamba_cache(cfg: MambaConfig, batch: int, dtype, device="cuda", *,
+                     splits: int = 1) -> MambaCache:
+    """Zero caches; ``splits`` ranks share the heads (each holds its own
+    heads' state and ``x`` channels, and all of ``B`` / ``C``)."""
     device = check_device(device)
+    nh = cfg.n_heads // splits
+    conv_dim = nh * cfg.head_dim + 2 * cfg.n_groups * cfg.d_state
     return MambaCache(
-        conv=torch.zeros((batch, cfg.conv_kernel - 1, cfg.conv_dim), dtype=dtype, device=device),
-        ssm=torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.head_dim), dtype=torch.float32,
+        conv=torch.zeros((batch, cfg.conv_kernel - 1, conv_dim), dtype=dtype, device=device),
+        ssm=torch.zeros((batch, nh, cfg.d_state, cfg.head_dim), dtype=torch.float32,
                         device=device),
     )
 
 
-def _heads_from_conv(cfg: MambaConfig, xbc: torch.Tensor):
-    """Split the conv output (..., conv_dim) into x heads, B and C groups."""
-    nh, hp, ds, ng = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
-    lead = xbc.shape[:-1]
-    xs = xbc[..., : cfg.d_inner].reshape(*lead, nh, hp)
-    B_ = xbc[..., cfg.d_inner: cfg.d_inner + ng * ds].reshape(*lead, ng, ds)
-    C_ = xbc[..., cfg.d_inner + ng * ds:].reshape(*lead, ng, ds)
+def _heads_from_conv(cfg: MambaConfig, xbc: torch.Tensor, h0: int, nh: int):
+    """Split the conv output (..., nh * head_dim + 2 gs) into x heads ``h0 ..
+    h0 + nh - 1`` and the B and C groups they read (one a head where they
+    are not every head)."""
+    hp, ds, ng = cfg.head_dim, cfg.d_state, cfg.n_groups
+    lead, di = xbc.shape[:-1], nh * hp
+    xs = xbc[..., :di].reshape(*lead, nh, hp)
+    B_ = xbc[..., di: di + ng * ds].reshape(*lead, ng, ds)
+    C_ = xbc[..., di + ng * ds:].reshape(*lead, ng, ds)
+    if nh != cfg.n_heads and ng > 1:
+        groups = torch.arange(h0, h0 + nh, device=xbc.device) // (cfg.n_heads // ng)
+        B_, C_ = B_.index_select(-2, groups), C_.index_select(-2, groups)
     return xs, B_, C_
 
 
-def mamba_scan(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None):
+def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, width: int, group) -> torch.Tensor:
+    """``rmsnorm(p, y * silu(z))`` over ``width`` channels, of which this
+    rank holds ``y``'s: with a group the sum of squares is summed over it
+    (forward and backward: every rank's normalized block depends on it)."""
+    g = y * F.silu(z)
+    if group is None:
+        return rmsnorm(p, g)
+    gf = g.float()
+    ss = copy_to(group, reduce_from(group, (gf * gf).sum(dim=-1, keepdim=True)))
+    inv = torch.rsqrt(ss / width + 1e-6).to(g.dtype)
+    return g * inv * p["scale"].to(g.dtype)
+
+
+def _out(p: Params, y: torch.Tensor, group) -> torch.Tensor:
+    out = linear(p["out_proj"], y)
+    return out if group is None else reduce_from(group, out)
+
+
+def mamba_scan(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None, group=None):
     """Full-sequence forward x (B, S, D) -> (y (B, S, D), the pre-conv xbc,
     the final SSM state): ``mamba_train`` and prefill share it.
     ``constrain`` takes the reference's pins (heads and channels over
-    "model"), identities in the port."""
+    "model"), identities in the port; ``group`` splits the heads (module
+    docstring), and xbc and the state are then this rank's."""
     B, S, _ = x.shape
     pin = constrain or (lambda t, *axes: t)
-    z, xbc, dt = _split_proj(cfg, pin(linear(p["in_proj"], x), "batch", None, "model"))
-    xs, B_, C_ = _heads_from_conv(cfg, pin(_causal_conv(p, cfg, xbc), "batch", None, "model"))
+    h0, nh, di = _heads(cfg, group)
+    if group is not None:
+        x = copy_to(group, x)
+    z, xbc, dt = _split_proj(cfg, pin(linear(p["in_proj"], x), "batch", None, "model"), di)
+    xs, B_, C_ = _heads_from_conv(cfg, pin(_causal_conv(p, cfg, xbc), "batch", None, "model"),
+                                  h0, nh)
     xs = pin(xs, "batch", None, "model", None)
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, h_last = _ssd_chunked(cfg, xs, dt, B_, C_, A)
     y = y + p["D_skip"][:, None] * xs.float()
-    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    return linear(p["out_proj"], y), xbc, h_last
+    y = y.reshape(B, S, di).to(x.dtype)
+    return _out(p, _gated_norm(p["norm"], y, z, cfg.d_inner, group), group), xbc, h_last
 
 
-def mamba_train(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None) -> torch.Tensor:
+def mamba_train(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None,
+                group=None) -> torch.Tensor:
     """Full-sequence forward (train / prefill). x (B, S, D) -> (B, S, D)."""
-    return mamba_scan(p, cfg, x, constrain)[0]
+    return mamba_scan(p, cfg, x, constrain, group)[0]
 
 
-def mamba_decode(p: Params, cfg: MambaConfig, x: torch.Tensor, cache: MambaCache):
-    """One-token step. x (B, 1, D) -> (y (B, 1, D), new_cache). O(1) in context."""
+def mamba_decode(p: Params, cfg: MambaConfig, x: torch.Tensor, cache: MambaCache, group=None):
+    """One-token step. x (B, 1, D) -> (y (B, 1, D), new_cache). O(1) in context.
+    With ``group`` the heads split as in ``mamba_scan`` and ``cache`` is
+    this rank's."""
     B = x.shape[0]
-    nh, ng = cfg.n_heads, cfg.n_groups
-    z, xbc, dt = _split_proj(cfg, linear(p["in_proj"], x))
-    xbc = xbc[:, 0]                                              # (B, conv_dim)
-    window = torch.cat([cache.conv, xbc[:, None]], dim=1)       # (B, k, conv_dim)
+    h0, nh, di = _heads(cfg, group)
+    z, xbc, dt = _split_proj(cfg, linear(p["in_proj"], x), di)
+    xbc = xbc[:, 0]                                              # (B, conv channels)
+    window = torch.cat([cache.conv, xbc[:, None]], dim=1)       # (B, k, conv channels)
     w = p["conv_w"].to(xbc.dtype)
     conv_out = F.silu(torch.einsum("bkc,kc->bc", window, w) + p["conv_b"].to(xbc.dtype))
-    xs, B_, C_ = _heads_from_conv(cfg, conv_out)
-    rep = nh // ng
+    xs, B_, C_ = _heads_from_conv(cfg, conv_out, h0, nh)
+    rep = nh // B_.shape[1]
     Bg = torch.repeat_interleave(B_.float(), rep, dim=1)        # (B, nh, ds)
     Cg = torch.repeat_interleave(C_.float(), rep, dim=1)
     dtv = softplus(dt[:, 0].float() + p["dt_bias"])             # (B, nh)
@@ -210,6 +268,6 @@ def mamba_decode(p: Params, cfg: MambaConfig, x: torch.Tensor, cache: MambaCache
     xdt = xs.float() * dtv[..., None]                           # (B, nh, hp)
     h = cache.ssm * decay[..., None, None] + torch.einsum("bhd,bhp->bhdp", Bg, xdt)
     y = torch.einsum("bhd,bhdp->bhp", Cg, h) + p["D_skip"][:, None] * xs.float()
-    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    return linear(p["out_proj"], y), MambaCache(window[:, 1:], h)
+    y = y.reshape(B, 1, di).to(x.dtype)
+    return _out(p, _gated_norm(p["norm"], y, z, cfg.d_inner, group), group), \
+        MambaCache(window[:, 1:], h)

@@ -22,15 +22,18 @@ layout (``distributed.sharding.compute_specs``), the reference's
 parallelism profile: the embedding table vocab-sharded over ``ep_axis``
 (the vocab-parallel embedding and logits), every expert stack
 expert-sharded over it, and Megatron tensor parallelism in the dense
-layers: attention heads and dense FFN hidden units split over it
-(``copy_to`` before the column-parallel products, ``reduce_from`` after
-the row-parallel one).  Where the heads do not divide ``ep_axis`` (qwen2's
-28 at 16, the case the reference pins apart) every rank of a model group
-runs every head, as do Mamba-2 blocks, whose split is queued.  Decoding
-keeps each rank's rows and its ``S / model`` positions of every attention
-cache (split-K, ``attention_decode``), where they divide ``ep_axis``
-(``ShardCtx.seq_group``); a cache whose length does not is replicated over
-it, as the reference's is.  An MoE FFN takes each model rank's
+layers: attention heads, dense FFN hidden units and Mamba-2's SSM heads
+split over it (``copy_to`` before the column-parallel products,
+``reduce_from`` after the row-parallel one; a Mamba rank reads ``B`` /
+``C`` whole and its gated norm sums squares over the group).  Where the
+heads do not divide ``ep_axis`` (qwen2's 28 at 16, the case the reference
+pins apart) every rank of a model group runs every head; likewise a
+Mamba-2 block whose SSM heads do not (``ShardCtx.mamba_group``).
+Decoding keeps each rank's rows, its ``S / model`` positions of every
+attention cache (split-K, ``attention_decode``), where they divide
+``ep_axis`` (``ShardCtx.seq_group``), and its heads' Mamba state and conv
+channels; an attention cache whose length does not divide is replicated
+over it, as the reference's is.  An MoE FFN takes each model rank's
 contiguous share of the data shard's tokens into ``moe_apply_local``
 (model D's all_to_all) and gathers the outputs back, for train and
 prefill; decode replicates the tokens over the group and sums each rank's
@@ -238,6 +241,13 @@ class ShardCtx:
         layout = tp_layout(cfg, self.ep_shards)
         return TPHeads(self.ep_group, layout.kv_heads) if layout.heads else None
 
+    def mamba_group(self, cfg: "ModelConfig"):
+        """The group a Mamba-2 block's SSM heads split over (``None``: every
+        head on every rank)."""
+        if self.mesh is None or self.ep_shards == 1 or not tp_layout(cfg, self.ep_shards).mamba:
+            return None
+        return self.ep_group
+
     def ffn_group(self, cfg: "ModelConfig"):
         """The group a dense FFN's hidden units split over (``None``: whole)."""
         if self.mesh is None or self.ep_shards == 1 or not tp_layout(cfg, self.ep_shards).ffn:
@@ -418,7 +428,8 @@ def _apply_block(p: Params, cfg: ModelConfig, kind: str, ffn, x, ctx, stats, *,
         x = x + attention_train(p["attn"], cfg.attn_cfg(kind), h, constrain=attn_pin,
                                 tp=ctx.tp_heads(cfg))
     else:
-        x = x + mamba_train(p["mamba"], cfg.mamba_cfg(), h, constrain=pin)
+        x = x + mamba_train(p["mamba"], cfg.mamba_cfg(), h, constrain=pin,
+                            group=ctx.mamba_group(cfg))
     if ffn is not None:
         x, stats = _apply_ffn(p, cfg, x, ctx, stats, moe_capacity=moe_capacity,
                               moe_stats=moe_stats)
@@ -460,9 +471,10 @@ def forward(
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", *,
                ctx: ShardCtx = ShardCtx()):
     """Per-group stacked caches on ``device``: each leaf has a leading
-    ``n_groups`` axis.  On a mesh ``batch`` is this rank's rows and each
+    ``n_groups`` axis.  On a mesh ``batch`` is this rank's rows, each
     attention cache holds this rank's block of positions where they split
-    over ``ctx.ep_axis`` (``ShardCtx.seq_group``)."""
+    over ``ctx.ep_axis`` (``ShardCtx.seq_group``), and each Mamba cache
+    this rank's heads where they split (``ShardCtx.mamba_group``)."""
     device = check_device(device)
 
     def one(kind: str):
@@ -472,7 +484,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", *,
             c = init_kv_cache(acfg, batch, max_len, cfg.compute_dtype, device,
                               splits=1 if seq is None else seq.size)
         else:
-            c = init_mamba_cache(cfg.mamba_cfg(), batch, cfg.compute_dtype, device)
+            heads = ctx.mamba_group(cfg)
+            c = init_mamba_cache(cfg.mamba_cfg(), batch, cfg.compute_dtype, device,
+                                 splits=1 if heads is None else heads.size)
         return type(c)(*(t.expand((cfg.n_groups,) + t.shape).clone() for t in c))
 
     return {f"pos{i}": one(kind) for i, kind in enumerate(cfg.pattern)}
@@ -511,7 +525,8 @@ def decode_step(
                 out, nc = attention_decode(p["attn"], cfg.attn_cfg(kind), h, c,
                                            tp=ctx.tp_heads(cfg), seq=seq)
             else:
-                out, nc = mamba_decode(p["mamba"], cfg.mamba_cfg(), h, gcache[f"pos{i}"])
+                out, nc = mamba_decode(p["mamba"], cfg.mamba_cfg(), h, gcache[f"pos{i}"],
+                                       group=ctx.mamba_group(cfg))
             x = x + out
             new_gcache[f"pos{i}"] = nc
             if ffn is not None:

@@ -29,10 +29,11 @@ table, the logsumexp combined by a max and a sum over "model", the gold
 logit a second vocab-parallel lookup) and its mean covers every batch
 row: sum and count are summed over the batch axes.  ``prefill_step`` and
 ``serve_decode_step`` take params in the compute layout
-(``sharding.compute_specs``: heads and FFN hidden units split over
-"model") and this rank's rows; their cache holds each rank's block of
-every attention cache's positions (split-K) where its length divides
-"model", and all of them where it does not.
+(``sharding.compute_specs``: heads, FFN hidden units and SSM heads split
+over "model") and this rank's rows; their cache holds each rank's block
+of every attention cache's positions (split-K) where its length divides
+"model", and all of them where it does not, and its heads' Mamba state
+and conv channels (with ``B`` / ``C`` whole).
 
 A step reads nothing on the host: the dry-run (``launch/dryrun.py``)
 traces these same functions on fake tensors.
@@ -375,7 +376,8 @@ def prefill_step(
     zeros); local layers hold their window as a ring buffer; Mamba layers
     keep the last ``conv_kernel - 1`` conv inputs and the final SSM state.
     On a mesh each rank keeps its block of every attention cache's
-    positions where they divide ``ctx.ep_axis``, else all of them.
+    positions where they divide ``ctx.ep_axis``, else all of them, and its
+    heads' part of every Mamba cache (``ShardCtx.mamba_group``).
     """
     B, S = tokens.shape
     cache_len = cache_len or S
@@ -394,7 +396,7 @@ def prefill_step(
                                                                ctx, attn_pin)
             else:
                 mcfg = cfg.mamba_cfg()
-                out, xbc, h_last = mamba_scan(p["mamba"], mcfg, h, pin)
+                out, xbc, h_last = mamba_scan(p["mamba"], mcfg, h, pin, ctx.mamba_group(cfg))
                 new_cache[f"pos{i}"] = MambaCache(
                     conv=xbc[:, S - (mcfg.conv_kernel - 1):, :].to(cfg.compute_dtype),
                     ssm=h_last,

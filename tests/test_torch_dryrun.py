@@ -3,10 +3,17 @@ tensors.
 
 * The collective counter against the dry-run: a real (data=1, model=2)
   run on two gloo ranks counts the collectives of a train step (reduced
-  qwen3; reduced granite, whose MoE adds all_to_alls), a prefill and a
-  split-K decode step (reduced gemma3) through ``CollectiveCounter``;
-  the same steps traced as each rank of a fake world of two give the
-  same kinds, counts and bytes, exactly.
+  qwen3; reduced granite, whose MoE adds all_to_alls; reduced mamba2, its
+  SSM heads split over "model"), a prefill and a split-K decode step
+  (reduced gemma3) and a decode step of reduced jamba (Mamba-2 and
+  attention) through ``CollectiveCounter``; the same steps traced as each
+  rank of a fake world of two give the same kinds, counts and bytes,
+  exactly.
+* Mamba-2 over "model": reduced jamba's cell on a fake (data=1, model=4)
+  world carries no note, and a rank's Mamba params hold 1/4 of one
+  device's bytes plus the rest of the ``B`` / ``C`` columns and channels,
+  its SSM state exactly 1/4; 6 SSM heads on 4 ranks run whole, with the
+  note that says so.
 * Argument bytes: for every architecture's ``train_4k`` cell on the pod
   mesh, a rank's fake arguments (params, AdamW state, batch) hold exactly
   the bytes the reference's ``param_specs`` / ``opt_state_specs`` /
@@ -37,7 +44,9 @@ MEMORY_KEYS = {"argument_bytes_per_device", "output_bytes_per_device", "temp_byt
 COUNTED = [("qwen3-train", "qwen3-0.6b", "train"),
            ("granite-train", "granite-moe-3b-a800m", "train"),
            ("gemma3-prefill", "gemma3-12b", "prefill"),
-           ("gemma3-decode", "gemma3-12b", "decode")]
+           ("gemma3-decode", "gemma3-12b", "decode"),
+           ("mamba2-train", "mamba2-1.3b", "train"),
+           ("jamba-decode", "jamba-1.5-large-398b", "decode")]
 B, S, MICRO, CHUNK = 4, 16, 2, 8
 
 
@@ -216,6 +225,47 @@ def test_the_decode_cells_cache_is_split_over_model():
     assert rank * 16 == batch_split
     seq = SHAPES["decode_32k"][0]
     assert {c.k.shape[2] for c in cache.values()} == {seq // 16}
+
+
+def _mamba_cell(cfg, kind):
+    """``build_cell``'s ``(args, notes)`` of ``cfg`` as rank 0 of a fake
+    (data=1, model=4) world, on fake CPU tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.mesh import Mesh
+
+    with dryrun.fake_world(4):
+        mesh = Mesh((1, 4), ("data", "model"))
+        _, args, notes = dryrun.build_cell(cfg, kind, _inputs_meta(cfg, kind), mesh,
+                                           torch.device("cpu"), FakeTensorMode(), cache_len=S)
+    return args, notes
+
+
+def test_a_rank_of_a_reduced_jamba_cell_holds_its_share_of_mamba():
+    from repro_torch.tree import paths
+
+    cfg = reduced(ARCHS["jamba-1.5-large-398b"])
+    mc = cfg.mamba_cfg()
+    (params, _, cache), notes = _mamba_cell(cfg, "decode")
+    assert notes == []
+    mine = sum(t.nbytes for p, t in paths(params) if "mamba" in p)
+    layers, gs, D, k = cfg.pattern.count("mamba"), mc.n_groups * mc.d_state, cfg.d_model, mc.conv_kernel
+    whole = 4 * layers * (D * (2 * mc.d_inner + 2 * gs + mc.n_heads) + (k + 1) * mc.conv_dim
+                          + mc.d_inner * D + 3 * mc.n_heads + mc.d_inner)
+    bc = 4 * layers * (D + k + 1) * 2 * gs
+    assert mine * 4 == whole - bc + 4 * bc
+    assert mine < 0.32 * whole
+    ssm = sum(c.ssm.nbytes for c in cache.values() if hasattr(c, "ssm"))
+    assert ssm * 4 == 4 * layers * B * mc.n_heads * mc.d_state * mc.head_dim
+
+
+def test_ssm_heads_that_do_not_divide_model_run_whole_with_a_note():
+    import dataclasses
+
+    cfg = dataclasses.replace(reduced(ARCHS["mamba2-1.3b"]), d_model=48)  # 6 heads
+    (params, _), notes = _mamba_cell(cfg, "prefill")
+    assert notes == ["6 SSM heads do not divide model=4: every rank runs every head"]
+    assert params["blocks"]["pos0"]["mamba"]["A_log"].shape[-1] == 6
 
 
 def test_the_command_line_prints_ok_and_defaults_to_the_card(tmp_path, capsys):
