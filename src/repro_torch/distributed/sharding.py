@@ -69,7 +69,6 @@ __all__ = [
     "SegmentedAxis",
     "batch_specs",
     "block_index",
-    "block_slices",
     "cache_specs",
     "compute_specs",
     "fit_spec",
@@ -440,14 +439,6 @@ def block_index(shape, spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
-def block_slices(shape, spec: tuple, mesh) -> tuple:
-    """``block_index`` of a spec with no ``SegmentedAxis``: slices only."""
-    out = block_index(shape, spec, mesh)
-    if not all(isinstance(s, slice) for s in out):
-        raise ValueError(f"{spec} cuts segments: use take_block")
-    return out
-
-
 def take_block(a, spec: tuple, mesh):
     """This rank's block of ``a`` (a whole tensor or numpy array) under the
     fitted ``spec``; a copy where it takes segments, else a view."""
@@ -514,9 +505,10 @@ def unshard_tree(tree, specs, mesh) -> Any:
 class _Segments:
     """The all-gather over "model" of the segments a rank stores a piece of
     and computes with whole (``stored`` -> ``compute``, two layouts of one
-    dim), and the reduce-scatter of their gradient back.  Index lists map
-    each layout's positions; a gathered piece's gradient is every rank's
-    sum."""
+    dim), and the reduce-scatter of their gradient back.  Each layout is
+    cut from the other as runs of positions (narrowed views, one ``cat``:
+    a step copies no index from the host); a gathered piece's gradient is
+    every rank's sum."""
 
     def __init__(self, dim: int, stored: SegmentedAxis, compute: SegmentedAxis, group):
         self.dim, self.group = dim, group
@@ -525,22 +517,35 @@ class _Segments:
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         d = self.dim
-        pieces = self.group.gather(t.index_select(d, _index(self.sel, t)).contiguous(), d)
-        return torch.cat([t, pieces], d).index_select(d, _index(self.fwd, t))
+        pieces = self.group.gather(_take(t, d, self.sel), d)
+        return _take(torch.cat([t, pieces], d), d, self.fwd)
 
     def backward(self, g: torch.Tensor) -> torch.Tensor:
         d = self.dim
-        summed = self.group.reduce_scatter(g.index_select(d, _index(self.rs, g)), d)
-        return torch.cat([g, summed], d).index_select(d, _index(self.back, g))
+        summed = self.group.reduce_scatter(_take(g, d, self.rs), d)
+        return _take(torch.cat([g, summed], d), d, self.back)
 
 
-def _index(ix: list, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(ix, device=like.device)
+def _take(t: torch.Tensor, dim: int, runs: tuple) -> torch.Tensor:
+    """The positions ``runs`` (``(start, length)`` pairs) of ``t``'s
+    ``dim``, in order."""
+    return torch.cat([t.narrow(dim, a, n) for a, n in runs], dim)
+
+
+def _runs(ix: list) -> tuple:
+    """``ix`` as runs of consecutive positions: ``((start, length), ...)``."""
+    out = []
+    for w in ix:
+        if out and out[-1][0] + out[-1][1] == w:
+            out[-1][1] += 1
+        else:
+            out.append([w, 1])
+    return tuple((a, n) for a, n in out)
 
 
 @lru_cache(maxsize=None)
 def _segment_maps(sizes: tuple, stored_whole: tuple, compute_whole: tuple, n: int, r: int):
-    """``_Segments``' index lists: the stored block's positions it sends
+    """``_Segments``' runs: the stored block's positions it sends
     (``sel``); the compute block from the stored block and the gathered
     pieces (``fwd``); the compute block's positions of every rank's pieces
     (``rs``); the stored block from the compute block and the summed
@@ -558,8 +563,8 @@ def _segment_maps(sizes: tuple, stored_whole: tuple, compute_whole: tuple, n: in
     src.update({w: j for j, w in enumerate(mine)})
     pos = {w: j for j, w in enumerate(want)}
     own = {mine[j]: k for k, j in enumerate(sel)}
-    return (sel, [src[w] for w in want], [pos[w] for w in gathered],
-            [len(want) + own[w] if w in own else pos[w] for w in mine])
+    return tuple(map(_runs, (sel, [src[w] for w in want], [pos[w] for w in gathered],
+                             [len(want) + own[w] if w in own else pos[w] for w in mine])))
 
 
 class _Plan:

@@ -48,16 +48,22 @@ def rmsnorm_init(dim: int, dtype, device="cuda") -> Params:
     return {"scale": torch.ones((dim,), dtype=dtype, device=check_device(device))}
 
 
-def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-6, group=None) -> torch.Tensor:
     """Variance in float32; the normalize and scale multiplies stay in the
     residual dtype (the reference's choice, which keeps bf16 activations
-    bf16).
+    bf16).  With ``group`` (an ``AxisGroup``) ``x`` and ``p`` are this
+    rank's equal share of the normalized dim: the sum of squares is summed
+    over the group, forward and backward.
 
     >>> rmsnorm({"scale": torch.ones(2)}, torch.tensor([[3.0, 4.0]])).tolist()
     [[0.8485280275344849, 1.1313706636428833]]
     """
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if group is None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        ss = copy_to(group, reduce_from(group, (xf * xf).sum(dim=-1, keepdim=True)))
+        var = ss / (x.shape[-1] * group.size)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * p["scale"].to(x.dtype)
 

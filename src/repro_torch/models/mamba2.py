@@ -88,11 +88,15 @@ def mamba_init(gen, cfg: MambaConfig, dtype, device="cuda") -> Params:
 
 
 def _heads(cfg: MambaConfig, group) -> tuple:
-    """``(first head, heads, d_inner)`` this rank computes: all of them with
-    no group, else its ``1 / group.size`` share."""
-    n, r = (1, 0) if group is None else (group.size, group.rank)
-    nh = cfg.n_heads // n
-    return r * nh, nh, nh * cfg.head_dim
+    """``(heads, d_inner)`` this rank computes: all of them with no group,
+    else its ``1 / group.size`` share.  A split reads ``B`` / ``C`` as one
+    group every head shares (``n_groups`` is 1 in every config)."""
+    if group is None:
+        return cfg.n_heads, cfg.d_inner
+    if cfg.n_groups != 1:
+        raise NotImplementedError(f"SSM heads split over a group with n_groups={cfg.n_groups}")
+    nh = cfg.n_heads // group.size
+    return nh, nh * cfg.head_dim
 
 
 def _split_proj(cfg: MambaConfig, zxbcdt: torch.Tensor, di: int):
@@ -185,32 +189,15 @@ def init_mamba_cache(cfg: MambaConfig, batch: int, dtype, device="cuda", *,
     )
 
 
-def _heads_from_conv(cfg: MambaConfig, xbc: torch.Tensor, h0: int, nh: int):
-    """Split the conv output (..., nh * head_dim + 2 gs) into x heads ``h0 ..
-    h0 + nh - 1`` and the B and C groups they read (one a head where they
-    are not every head)."""
+def _heads_from_conv(cfg: MambaConfig, xbc: torch.Tensor, nh: int):
+    """Split the conv output (..., nh * head_dim + 2 gs) into ``nh`` x heads
+    and the B and C groups."""
     hp, ds, ng = cfg.head_dim, cfg.d_state, cfg.n_groups
     lead, di = xbc.shape[:-1], nh * hp
     xs = xbc[..., :di].reshape(*lead, nh, hp)
     B_ = xbc[..., di: di + ng * ds].reshape(*lead, ng, ds)
     C_ = xbc[..., di + ng * ds:].reshape(*lead, ng, ds)
-    if nh != cfg.n_heads and ng > 1:
-        groups = torch.arange(h0, h0 + nh, device=xbc.device) // (cfg.n_heads // ng)
-        B_, C_ = B_.index_select(-2, groups), C_.index_select(-2, groups)
     return xs, B_, C_
-
-
-def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, width: int, group) -> torch.Tensor:
-    """``rmsnorm(p, y * silu(z))`` over ``width`` channels, of which this
-    rank holds ``y``'s: with a group the sum of squares is summed over it
-    (forward and backward: every rank's normalized block depends on it)."""
-    g = y * F.silu(z)
-    if group is None:
-        return rmsnorm(p, g)
-    gf = g.float()
-    ss = copy_to(group, reduce_from(group, (gf * gf).sum(dim=-1, keepdim=True)))
-    inv = torch.rsqrt(ss / width + 1e-6).to(g.dtype)
-    return g * inv * p["scale"].to(g.dtype)
 
 
 def _out(p: Params, y: torch.Tensor, group) -> torch.Tensor:
@@ -226,19 +213,18 @@ def mamba_scan(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None, gro
     docstring), and xbc and the state are then this rank's."""
     B, S, _ = x.shape
     pin = constrain or (lambda t, *axes: t)
-    h0, nh, di = _heads(cfg, group)
+    nh, di = _heads(cfg, group)
     if group is not None:
         x = copy_to(group, x)
     z, xbc, dt = _split_proj(cfg, pin(linear(p["in_proj"], x), "batch", None, "model"), di)
-    xs, B_, C_ = _heads_from_conv(cfg, pin(_causal_conv(p, cfg, xbc), "batch", None, "model"),
-                                  h0, nh)
+    xs, B_, C_ = _heads_from_conv(cfg, pin(_causal_conv(p, cfg, xbc), "batch", None, "model"), nh)
     xs = pin(xs, "batch", None, "model", None)
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     y, h_last = _ssd_chunked(cfg, xs, dt, B_, C_, A)
     y = y + p["D_skip"][:, None] * xs.float()
     y = y.reshape(B, S, di).to(x.dtype)
-    return _out(p, _gated_norm(p["norm"], y, z, cfg.d_inner, group), group), xbc, h_last
+    return _out(p, rmsnorm(p["norm"], y * F.silu(z), group=group), group), xbc, h_last
 
 
 def mamba_train(p: Params, cfg: MambaConfig, x: torch.Tensor, constrain=None,
@@ -252,13 +238,13 @@ def mamba_decode(p: Params, cfg: MambaConfig, x: torch.Tensor, cache: MambaCache
     With ``group`` the heads split as in ``mamba_scan`` and ``cache`` is
     this rank's."""
     B = x.shape[0]
-    h0, nh, di = _heads(cfg, group)
+    nh, di = _heads(cfg, group)
     z, xbc, dt = _split_proj(cfg, linear(p["in_proj"], x), di)
     xbc = xbc[:, 0]                                              # (B, conv channels)
     window = torch.cat([cache.conv, xbc[:, None]], dim=1)       # (B, k, conv channels)
     w = p["conv_w"].to(xbc.dtype)
     conv_out = F.silu(torch.einsum("bkc,kc->bc", window, w) + p["conv_b"].to(xbc.dtype))
-    xs, B_, C_ = _heads_from_conv(cfg, conv_out, h0, nh)
+    xs, B_, C_ = _heads_from_conv(cfg, conv_out, nh)
     rep = nh // B_.shape[1]
     Bg = torch.repeat_interleave(B_.float(), rep, dim=1)        # (B, nh, ds)
     Cg = torch.repeat_interleave(C_.float(), rep, dim=1)
@@ -269,5 +255,5 @@ def mamba_decode(p: Params, cfg: MambaConfig, x: torch.Tensor, cache: MambaCache
     h = cache.ssm * decay[..., None, None] + torch.einsum("bhd,bhp->bhdp", Bg, xdt)
     y = torch.einsum("bhd,bhdp->bhp", Cg, h) + p["D_skip"][:, None] * xs.float()
     y = y.reshape(B, 1, di).to(x.dtype)
-    return _out(p, _gated_norm(p["norm"], y, z, cfg.d_inner, group), group), \
+    return _out(p, rmsnorm(p["norm"], y * F.silu(z), group=group), group), \
         MambaCache(window[:, 1:], h)

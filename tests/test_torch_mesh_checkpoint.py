@@ -132,7 +132,7 @@ def runs(tmp_path_factory):
 
 
 def test_a_reference_checkpoint_restores_onto_a_2x2_mesh(runs):
-    from repro_torch.distributed.sharding import block_slices, fit_spec, opt_state_specs, param_specs
+    from repro_torch.distributed.sharding import fit_spec, opt_state_specs, param_specs, take_block
 
     ref, ports, _ = runs
     tree = {}
@@ -152,7 +152,7 @@ def test_a_reference_checkpoint_restores_onto_a_2x2_mesh(runs):
             node = specs
             for h in k.split("/"):
                 node = node[h]
-            want = v[block_slices(v.shape, fit_spec(v.shape, node, mesh), mesh)]
+            want = take_block(v, fit_spec(v.shape, node, mesh), mesh)
             got = r["restored/" + k]
             assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), (rank, k)
 

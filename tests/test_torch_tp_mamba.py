@@ -338,3 +338,19 @@ def test_heads_that_do_not_divide_run_whole_on_every_rank(runs):
     for r in ranks:
         assert int(r[f"{case}/in_proj_width"]) == 2 * mc.d_inner + 2 * gs + mc.n_heads
         assert int(r[f"{case}/ssm_bytes"]) == 4 * B * mc.n_heads * mc.d_state * mc.head_dim
+
+
+def test_a_head_split_with_more_than_one_b_c_group_raises():
+    """Every config has one ``B`` / ``C`` group; a head split of a block
+    with more refuses to run rather than read the wrong group."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.models.mamba2 import MambaConfig, mamba_init, mamba_train
+
+    mc = MambaConfig(d_model=32, d_state=8, head_dim=16, n_groups=2, chunk=8)
+    p = mamba_init(torch.Generator().manual_seed(0), mc, torch.float32, device="cpu")
+    assert mamba_train(p, mc, torch.ones(1, 8, 32)).shape == (1, 8, 32)
+    with pytest.raises(NotImplementedError, match="n_groups=2"):
+        mamba_train(p, mc, torch.ones(1, 8, 32), group=SimpleNamespace(size=2, rank=0))
