@@ -79,8 +79,13 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
   nan_merge  repro_torch.sort (local_impl xla, merge, kernel) and
            engine.argsort (xla, kernel; both directions) of 1,000,003
            float32 keys a quarter of which are NaN of either sign, +-inf or
-           +-0.0: no call raises or trips a device assert, and xla / merge
-           give the CPU path's bits
+           +-0.0: no call raises or trips a device assert, xla / merge give
+           the CPU path's bits, the kernel argsort xla's permutation; a
+           top-50 of (8, 151936) such logits through the kernel: in-range
+           indices, xla's indices and values; its time beside that of the
+           float image (core.merge.sort_image) it ranks on, and the kernel
+           argsort of those logits with and without the image, in 12
+           alternating pairs (mean difference and its standard error)
   lm_serve the slice's main path: repro_torch.launch.serve.main decoding
            qwen3-0.6b at full size (28 layers, bf16, random weights from
            seed 0) for batch 8, prompt 128, 16 greedy tokens, on the direct
@@ -161,6 +166,21 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
   dryrun   repro_torch.launch.dryrun over every pod cell on fake CUDA
            tensors: every cell OK, no Mamba cell with whole blocks; peaks a
            rank, the Mamba cells' apart
+  multihost  the port's multihost tier (tests/_torch_multihost.py, loaded
+           by path) on the card: gloo ranks in fresh processes sharing it,
+           bodies of tests/_torch_multihost_bodies.py with device "cuda".
+           cluster_sort and cluster_sort_kv (local_impl "kernel") of 2^22
+           keys in all on 2 and 4 ranks, each rank's result equal to one
+           rank's (run_single) bit for bit and, in the body, to torch.sort /
+           torch.argsort(stable=True) of the whole input; the
+           rank-coordinated autotune with rank 1 killed at candidate 1 (the
+           run ends by the grace period, not the timeout; the plan file is
+           absent or loads), then a clean rerun (every rank and the file
+           hold one plan); the autotune with rank 1 hung at candidate 1 and
+           gloo's timeout at 10 s (contained: every rank fails, the run ends
+           before its timeout).  Wall times of every run, and the
+           gloo_timing body's model B and model D microseconds on 1 and 2
+           ranks (what the host-staged wire costs)
 
 The mesh phases' lines carry the card's name and power limit as nvidia-smi
 gives them.  Then the kernels line (launches on every path, time per
@@ -211,6 +231,7 @@ TENANTS = (("web", 3.0, 0, 40.0), ("batch", 1.0, 1, 200.0))  # name, weight, pri
 TRACE = dict(duration_s=5.0, rates={"web": 200.0, "batch": 50.0}, zipf_a=1.2, seed=11)
 OVERLOAD = 20  # the second replay's rate multiple
 NAN_N = 1_000_003  # nan_merge: keys holding NaN, +-inf and +-0.0
+IMAGE_PAIRS = 12  # nan_merge: alternating timings of the kernel argsort with / without the image
 # lm_serve: the slice's main path, qwen3-0.6b at full size, decoding
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TOPK = "qwen3-0.6b", 8, 128, 16, 16
 # lm_moe: granite's MoE stack at full width and depth, greedy decode
@@ -282,6 +303,10 @@ TP_MEMORY_SHARE = 0.10
 # against the dry-run: lm_tp's bounds.
 SSM_ARCH, SSM_LAYERS = "mamba2-1.3b", 4
 DRYRUN_JOBS = 8  # dryrun: the pod sweep's cells traced at once
+# multihost: the port's multihost tier on the card, gloo ranks sharing it
+MULTIHOST_N, MULTIHOST_RANKS = 1 << 22, (2, 4)  # keys in all; ranks a run
+MULTIHOST_AUTOTUNE_N = 1 << 20  # the fault runs' autotune bucket
+MULTIHOST_GLOO_TIMEOUT_S, MULTIHOST_TIMEOUT_S = 10, 120
 PALLAS = "src/repro/kernels/bitonic_sort/bitonic_sort.py"
 REPLACES = {
     "block_sort": f"{PALLAS}:88",
@@ -1017,10 +1042,10 @@ def nan_keys(n: int, gen, device) -> torch.Tensor:
 
 
 def phase_nan_merge(kernels, device, add, n=NAN_N) -> dict:
-    """Model B and the stable argsort over NaN-holding keys on the card:
-    no call raises or trips a device assert; 'xla' and 'merge' give the
-    CPU path's bits (the values the CPU parity test holds against the
-    reference)."""
+    """Model B, the stable argsort and the top-k over NaN-holding keys on
+    the card: no call raises or trips a device assert; 'xla' and 'merge'
+    give the CPU path's bits (the values the CPU parity test holds against
+    the reference); the kernel argsort and top-k give 'xla''s indices."""
     import repro_torch
     from repro_torch import engine
 
@@ -1040,17 +1065,61 @@ def phase_nan_merge(kernels, device, add, n=NAN_N) -> dict:
             entry["bitwise_equal_cpu"] = True
         entry["nan_out"] = int(torch.isnan(got).sum())
         out[f"sort_{impl}"] = entry
-    for impl in ("xla", "kernel"):
-        for asc in (True, False):
+    for asc in (True, False):
+        xla = None
+        for impl in ("xla", "kernel"):
             idx, counts = counted(kernels, lambda: engine.argsort(x, ascending=asc, impl=impl))
             add(counts)
             check(idx.shape == x.shape and idx.dtype == torch.int32, f"nan_merge argsort {impl}")
             if impl == "xla":
                 want = engine.argsort(x_cpu, ascending=asc, impl="xla")
                 check(torch.equal(idx.cpu(), want), "nan_merge argsort xla: differs from the CPU path")
+                xla = idx
+            else:  # ranked on sort_image: NaN lets no pad rank in
+                check(torch.equal(idx, xla), "nan_merge argsort kernel: differs from impl='xla'")
             out[f"argsort_{impl}_{'asc' if asc else 'desc'}"] = {"launches": counts}
+    # a top-k over NaN-holding logits of the vocabulary's width (padded rows)
+    logits = nan_keys(8 * VOCAB, gen, device).view(8, VOCAB)
+    (vals, idx), counts = counted(kernels, lambda: engine.topk(logits, 50, impl="kernel"))
+    add(counts)
+    want_vals, want_idx = engine.topk(logits, 50, impl="xla")
+    check(0 <= int(idx.min()) and int(idx.max()) < VOCAB, "nan_merge topk kernel: index out of range")
+    check(torch.equal(idx, want_idx) and same_bits(vals, want_vals),
+          "nan_merge topk kernel: differs from impl='xla'")
+    # what the float image adds to the kernel top-k: its own time beside the call's
+    from repro_torch.core.merge import sort_image
+
+    # the same kernel argsort with and without the image, in turns: what
+    # the image adds to the network's launches at the vocabulary's width
+    from repro_torch.kernels.bitonic_sort import ops
+
+    def no_image():
+        block_n, rows = ops._padded_rows(logits, ops.DEFAULT_BLOCK_N)
+        return ops._argsort_rows(rows, block_n)
+
+    def with_image():
+        return ops.kernel_argsort(logits)
+
+    # IMAGE_PAIRS pairs, the order flipped every pair; the cost counts as
+    # measured where the mean difference is over twice its standard error
+    without, with_ = [], []
+    for i in range(IMAGE_PAIRS):
+        first, second = (no_image, with_image) if i % 2 == 0 else (with_image, no_image)
+        t1, t2 = time_ms(first, reps=20), time_ms(second, reps=20)
+        without.append(t1 if i % 2 == 0 else t2)
+        with_.append(t2 if i % 2 == 0 else t1)
+    diff = [w - o for w, o in zip(with_, without)]
+    mean = sum(diff) / len(diff)
+    se = (sum((d - mean) ** 2 for d in diff) / (len(diff) - 1) / len(diff)) ** 0.5
+    out["topk_kernel"] = {"shape": [8, VOCAB], "k": 50, "launches": counts, "equal_impl_xla": True,
+                          "ms": time_ms(lambda: engine.topk(logits, 50, impl="kernel"), reps=20),
+                          "sort_image_ms": time_ms(lambda: sort_image(logits), reps=20),
+                          "argsort_without_image_ms": without, "argsort_with_image_ms": with_,
+                          "image_cost_ms": mean, "image_cost_se_ms": se,
+                          "image_cost": "measured" if abs(mean) > 2 * se else "unresolved",
+                          "reps": 20}
     return {"n": n, "dtype": "float32", "nan_in": int(torch.isnan(x).sum()), "results": out,
-            "no_device_assert": True}
+            "no_device_assert": True, "argsort_kernel_equal_xla": True}
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2355,6 +2424,135 @@ def phase_dryrun() -> dict:
             "over_80gb": over, "skipped": [ln for ln in lines if ln.startswith("SKIP")]}
 
 
+def _multihost_harness():
+    """``tests/_torch_multihost.py``, loaded by path (the tests directory is
+    not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_torch_multihost", os.path.join(ROOT, "tests", "_torch_multihost.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses resolve their module
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_multihost(add, smi: str) -> dict:
+    """The port's multihost tier on the card (see the module docstring);
+    any failed check raises."""
+    from repro_torch.engine.planner import Planner
+
+    harness = _multihost_harness()
+    bodies = "_torch_multihost_bodies.py"
+    work = os.path.join(ROOT, "build", "multihost")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {"nvidia_smi": smi, "n": MULTIHOST_N, "ranks": list(MULTIHOST_RANKS), "runs": {}}
+
+    def record(label, run):
+        out["runs"][label] = {"wall_s": run.wall_s, "ok": run.ok, "timed_out": run.timed_out,
+                              "first_failure_s": run.first_failure_s,
+                              "returncodes": [r.returncode for r in run.reports]}
+
+    def autotune(name, fault=None, **extra):
+        args = {"plans_path": os.path.join(work, f"{name}.json"), "n": MULTIHOST_AUTOTUNE_N,
+                "reps": 2, "device": "cuda", **extra}
+        if fault is not None:
+            args["fault"] = {"rank": 1, "point": "candidate:1", "kind": fault}
+        return lambda: harness.run_multihost(f"{bodies}:autotune_body", 2, args=args,
+                                             timeout=MULTIHOST_TIMEOUT_S)
+
+    # model D and its kv twin with the kernels at every rank count, and the
+    # coordinated autotune with rank 1 killed and with rank 1 hung, all at
+    # once: a run's wall time is mostly its processes' start
+    sorts = {"cluster_sort": ("cluster_sort_body", ("sorted_sha",)),
+             "cluster_sort_kv": ("cluster_sort_kv_body", ("sorted_keys_sha", "idx_sha", "w_sha"))}
+    calls = {"killed": autotune("killed", "crash"),
+             "hung": autotune("hung", "hang", gloo_timeout_s=MULTIHOST_GLOO_TIMEOUT_S)}
+    for label, (body, _) in sorts.items():
+        args = {"n": MULTIHOST_N, "seed": 3, "local_impl": "kernel", "device": "cuda"}
+        calls[(label, 1)] = lambda body=body, args=args: harness.run_single(
+            f"{bodies}:{body}", args=args, timeout=MULTIHOST_TIMEOUT_S)
+        for ranks in MULTIHOST_RANKS:
+            calls[(label, ranks)] = lambda body=body, args=args, ranks=ranks: harness.run_multihost(
+                f"{bodies}:{body}", ranks, args=args, timeout=MULTIHOST_TIMEOUT_S)
+    t0 = time.perf_counter()
+    runs = harness.run_together(calls, max_workers=len(calls))
+    out["first_runs_seconds"] = time.perf_counter() - t0
+    out["launches"] = {}
+    for key, run in runs.items():
+        if key in ("killed", "hung"):
+            record(f"autotune_{key}", run)
+            continue
+        label, ranks = key
+        record(f"{label}/{ranks}", run)
+        check(run.ok, f"multihost {label} on {ranks} rank(s):\n{run.describe()}")
+    for label, (_, fields) in sorts.items():
+        want = {f: runs[(label, 1)].result()[f] for f in fields}
+        for ranks in MULTIHOST_RANKS:
+            results = runs[(label, ranks)].results()
+            for rank, r in enumerate(results):
+                check({f: r[f] for f in fields} == want,
+                      f"multihost {label}: rank {rank} of {ranks} differs from one rank")
+                add(r["launches"])
+            out["launches"][f"{label}/{ranks}"] = [
+                {k: v for k, v in r["launches"].items() if v} for r in results]
+            out["runs"][f"{label}/{ranks}"]["body_seconds"] = [r["seconds"] for r in results]
+        kinds = ("block_sort", "block_merge") if label == "cluster_sort" else (
+            "block_sort_kv", "block_merge_kv")
+        for k in kinds:
+            check(all(r["launches"][k] > 0 for r in runs[(label, 2)].results()),
+                  f"multihost {label}: kernel {k} was not launched")
+
+    killed, hung = runs["killed"], runs["hung"]
+    # both faults fired where they were armed, after both ranks joined
+    for label, run in (("killed", killed), ("hung", hung)):
+        check(run.fault_reached(1) == "candidate:1" and run.reports[0].joined,
+              f"multihost: the {label} autotune failed before its fault:\n{run.describe()}")
+    check(not killed.ok and not killed.timed_out and killed.reports[1].returncode == 13,
+          f"multihost: the killed autotune was not contained:\n{killed.describe()}")
+    check(killed.wall_s - killed.first_failure_s < harness.GRACE_AFTER_FAILURE_S + 5,
+          "multihost: the killed autotune outlived the grace period")
+    killed_path = os.path.join(work, "killed.json")
+    if os.path.exists(killed_path):
+        Planner(device="cuda").load(killed_path, strict=True)
+    out["killed_plan_file"] = "loads" if os.path.exists(killed_path) else "absent"
+    check(not hung.ok and all(not r.ok for r in hung.reports)
+          and hung.wall_s < MULTIHOST_TIMEOUT_S,
+          f"multihost: the hung autotune was not contained:\n{hung.describe()}")
+    # where gloo's timeout ended it, rank 0 timed out inside the autotune
+    check(hung.timed_out or ("Timed out" in hung.reports[0].error
+                             and "in autotune" in hung.reports[0].traceback),
+          f"multihost: rank 0 of the hung autotune failed elsewhere:\n{hung.describe()}")
+    out["hung_ended_by"] = "harness timeout" if hung.timed_out else "gloo timeout"
+
+    # a clean rerun on the killed run's file; beside it, what gloo's
+    # host-staged wire costs: model B and model D timed by the planner's
+    # helpers (median of 3 reps, max over ranks) on 1 and 2 ranks
+    timing_args = {"n": MULTIHOST_N, "reps": 3, "device": "cuda"}
+    calls = {"clean": autotune("killed")}  # the same file, no fault
+    for ranks in (1, 2):
+        calls[ranks] = lambda ranks=ranks: harness.run_multihost(
+            f"{bodies}:gloo_timing_body", ranks, args=timing_args, timeout=MULTIHOST_TIMEOUT_S)
+    runs = harness.run_together(calls)
+    out["gloo_timing_us"] = {}
+    for ranks in (1, 2):
+        record(f"gloo_timing/{ranks}", runs[ranks])
+        check(runs[ranks].ok, f"multihost gloo_timing on {ranks} rank(s):\n{runs[ranks].describe()}")
+        out["gloo_timing_us"][ranks] = runs[ranks].result()
+    clean = runs["clean"].require_success()
+    record("autotune_clean", clean)
+    results = clean.results()
+    check(all(r["best"] == results[0]["best"] and r["plans"] == results[0]["plans"]
+              for r in results), "multihost: the clean autotune's ranks hold different plans")
+    on_disk = Planner(device="cuda").load(killed_path, strict=True).plans
+    check(on_disk[results[0]["plan_key"]].to_dict() == results[0]["best"],
+          "multihost: the plan file differs from the ranks' plan")
+    check([r["wrote"] for r in results] == [True, False], "multihost: rank 0 is not the writer")
+    out["autotune"] = {"key": results[0]["plan_key"], "best": results[0]["best"]}
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this script needs one card")
@@ -2493,7 +2691,8 @@ def main() -> None:
                          ("lm_mesh", lambda: phase_lm_mesh(kernels, device, results["lm_train"])),
                          ("lm_tp", lambda: phase_lm_tp(kernels, device, results["lm_train"])),
                          ("lm_ssm_tp", lambda: phase_lm_ssm_tp(kernels, device)),
-                         ("dryrun", phase_dryrun)):
+                         ("dryrun", phase_dryrun),
+                         ("multihost", lambda: phase_multihost(add, smi))):
         print(smi, flush=True)
         t0 = time.perf_counter()
         results[label] = phase()

@@ -72,7 +72,10 @@ def _order_keys(
 
     Descending stability (ties keep original order) sorts the reversed-order
     key transform ascending.  ``impl='kernel'`` runs the kernels' stable
-    (key, rank) network: the same permutation (NaN keys aside).
+    (key, rank) network: the same permutation, NaN keys included (both rank
+    floats on ``sort_image``).  The indices come as each route makes them
+    (int64 from the library, int32 from the kernels): a caller that gathers
+    takes them so, one that returns them casts to int32.
     """
     k = keys if ascending else _rev_key(keys)
     if impl == "kernel":
@@ -82,7 +85,7 @@ def _order_keys(
     if impl != "xla":
         raise ValueError(f"argsort impl must be 'xla' or 'kernel', got {impl!r}")
     # floats on their sort image: NaN of either sign last on every device
-    return torch.sort(sort_image(k), dim=-1, stable=True).indices.to(torch.int32)
+    return torch.sort(sort_image(k), dim=-1, stable=True).indices
 
 
 def _gather_last(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -104,9 +107,10 @@ def cluster_kv_local(
     partitioner,
     n_buckets: int,
     compress: bool = False,
+    local_impl: str = "xla",
 ):
     """Model D with a payload on one rank: exchange (key, value) records,
-    stable-sort the slab.
+    stable-sort the slab (``local_impl`` as ``argsort``'s ``impl``).
 
     Returns (sorted_keys (n_buckets * capacity,), sorted_values nest,
     my_count (1,), peak, overflow).  Entries [0, my_count) are this rank's
@@ -119,8 +123,9 @@ def cluster_kv_local(
     flat_k = ex.recv_keys.reshape(-1)
     # slab flat index = (sender, local bucket, slot): within one bucket this
     # is global arrival order, so a stable sort here is the global stable
-    # sort (the library's, in the role XLA's argsort plays in the reference)
-    order = torch.argsort(flat_k, stable=True)
+    # sort (the library's or the kernels', in the role XLA's argsort plays
+    # in the reference)
+    order = _order_keys(flat_k, ascending=True, impl=local_impl).long()
     sorted_k = flat_k[order]
     sorted_v = tree_map(lambda v: v.reshape((flat_k.shape[0],) + v.shape[2:])[order], ex.recv_values)
     return (sorted_k, sorted_v, *owned_count_and_peak(ex, group, n_buckets), ex.overflow)
@@ -138,6 +143,7 @@ def cluster_sort_kv(
     lo=0,
     hi=1,
     compress: bool = False,
+    local_impl: str = "xla",
     max_retries: int = 4,
     telemetry=None,
 ):
@@ -150,7 +156,9 @@ def cluster_sort_kv(
     block of the reference's slabs, whose first ``valid.sum()`` records are
     this rank's contiguous range of the sorted records.  Retries with
     doubled capacity on overflow and reports telemetry as ``cluster_sort``
-    does.
+    does.  ``local_impl`` sorts each received slab: ``'xla'`` (the
+    library's stable sort, the reference's only choice) or ``'kernel'``
+    (the bitonic (key, rank) kernels at their default tile width).
     """
     group = as_axis_group(mesh)
     P_ = group.size
@@ -163,7 +171,7 @@ def cluster_sort_kv(
 
     def run(c):
         return cluster_kv_local(keys, values, group, capacity=c, partitioner=part,
-                                n_buckets=n_buckets, compress=compress)
+                                n_buckets=n_buckets, compress=compress, local_impl=local_impl)
 
     (slab_k, slab_v), my_count = run_with_capacity_retries(
         run,
@@ -275,7 +283,7 @@ def argsort(
     """
     keys = as_tensor(keys, device)
     if mesh is None:
-        return _order_keys(keys, ascending=ascending, impl=impl, block_n=block_n)
+        return _order_keys(keys, ascending=ascending, impl=impl, block_n=block_n).to(torch.int32)
     m = keys.shape[-1]
     iota = as_axis_group(mesh).rank * m + torch.arange(m, dtype=torch.int32, device=keys.device)
     _, idx = sort_pairs(keys, iota, mesh=mesh, axis=axis, ascending=ascending, **cluster_kw)
@@ -301,5 +309,5 @@ def topk(
     ([9.0, 4.0], [1, 2])
     """
     x = as_tensor(x, device)
-    top_idx = _order_keys(x, ascending=not largest, impl=impl, block_n=block_n)[..., :k]
+    top_idx = _order_keys(x, ascending=not largest, impl=impl, block_n=block_n)[..., :k].to(torch.int32)
     return _gather_last(x, top_idx), top_idx

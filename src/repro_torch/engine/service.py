@@ -157,7 +157,8 @@ class SortService:
                 )
         elif kind == "argsort":
             def build():
-                return lambda xb: _order_keys(xb, ascending=ascending, impl=impl, block_n=block_n)
+                return lambda xb: _order_keys(xb, ascending=ascending, impl=impl,
+                                              block_n=block_n).to(torch.int32)
         else:  # sort_kv
             def build():
                 def f(xb, vb):

@@ -20,8 +20,12 @@ int8, uint8, int16, uint16 or uint32, which go through the int32 network by
 an order-preserving map and come back in their own dtype, bit for bit.
 
 ``block_n`` is the tile width: a power of two, clamped to the padded length
-(tiles above ``MAX_BLOCK_N`` are composed from launches at the cap).  NaN
-keys give unspecified output.
+(tiles above ``MAX_BLOCK_N`` are composed from launches at the cap).
+``kernel_argsort`` ranks float keys on ``core.merge.sort_image`` (int32,
+float16 and bfloat16 widened exactly): NaN of either sign is ``INT32_MAX``,
+which a pad (the same key at a rank >= n) follows, so the first n ranks are
+``impl='xla'``'s permutation.  ``kernel_sort`` gives NaN keys unspecified
+output.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch.core.bitonic import next_pow2, sentinel_for
+from repro_torch.core.merge import sort_image
 
 from .bitonic_sort import (
     MAX_BLOCK_N,
@@ -60,6 +65,8 @@ def _resolve_shape(n: int, block_n: int):
 
 
 _INT32_SIGN = -(1 << 31)
+# ranked on their int32 sort image by kernel_argsort
+_FLOAT_KEYS = (torch.float32, torch.float16, torch.bfloat16)
 # widened exactly: int32 keeps their order
 _WIDENED = (torch.int8, torch.uint8, torch.int16, torch.uint16)
 
@@ -162,10 +169,16 @@ def kernel_argsort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.
 
     Matches ``np.argsort(kind='stable')``: pad entries (sentinel key, rank
     >= n) sort after every real element, even one equal to the sentinel.
+    Float keys are ranked on their ``sort_image``: -0.0 ties +0.0, as the
+    kernels' float compare has it, and NaN of either sign sorts last but
+    before every pad, where a NaN key would let a pad rank in (every compare
+    with NaN is false).
 
     >>> kernel_argsort(torch.tensor([30, 10, 20, 10], dtype=torch.int32)).tolist()
     [1, 3, 2, 0]
     """
+    if x.dtype in _FLOAT_KEYS:
+        x = sort_image(x)
     block_n, rows = _padded_rows(x, block_n)
     _, perm = _argsort_rows(rows, block_n)
     return perm[:, : x.shape[-1]].reshape(x.shape)

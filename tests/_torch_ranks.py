@@ -11,7 +11,8 @@ hand both sides the same inputs, written once to an ``.npz``:
 * ``run_port(body, world, workdir)`` runs ``body`` in ``world`` fresh
   interpreters, one rank each of a gloo group that meets through a
   ``FileStore`` in ``workdir`` (no TCP port, so parallel test workers never
-  collide).  It sees ``RANK``, ``WORLD``, ``G`` (the ``AxisGroup``),
+  collide), polled together under the multihost harness's containment.
+  It sees ``RANK``, ``WORLD``, ``G`` (the ``AxisGroup``),
   ``IN``, ``shard(a)`` (this rank's block of a global array, as a CPU
   tensor) and fills ``out``; the result is one dict per rank.
 
@@ -32,6 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
+from _torch_multihost import contain, rank_env
 from _torch_parity import bits
 from conftest import REPO, run_with_devices
 
@@ -110,30 +112,30 @@ def run_reference(body: str, world: int, workdir: Path) -> dict:
 
 
 def run_port(body: str, world: int, workdir: Path, timeout: int = 600) -> list:
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    """The port side: ``world`` ranks polled together under the multihost
+    harness's containment (``_torch_multihost.contain``): the peers of a
+    rank that fails end ``GRACE_AFTER_FAILURE_S`` later, a run past
+    ``timeout`` seconds ends there, and the assertion carries every rank's
+    log."""
+    env = rank_env({"PYTHONPATH": os.path.join(REPO, "src")})
     store = Path(workdir) / f"store{world}"
     outs = [Path(workdir) / f"port{world}_rank{r}.npz" for r in range(world)]
+    logs = [Path(workdir) / f"port{world}_rank{r}.log" for r in range(world)]
     procs = []
     for rank in range(world):
         head = _PORT_HEAD.format(rank=rank, world=world, store=str(store),
                                  inputs=str(Path(workdir) / "inputs.npz"))
         code = (head + textwrap.dedent(body)
                 + f"\nnp.savez({str(outs[rank])!r}, **out)\ndist.destroy_process_group()\n")
-        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        with open(logs[rank], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    timed_out, _ = contain(procs, timeout)
     failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
-    assert not failed, f"ranks failed {failed}:\n" + "\n".join(
-        f"--- rank {r} ---\n{log}" for r, log in enumerate(logs))
+    assert not failed and not timed_out, (
+        f"ranks failed {failed}{f' (run exceeded {timeout}s)' if timed_out else ''}:\n"
+        + "\n".join(f"--- rank {r} ---\n{log.read_text(errors='replace')}"
+                    for r, log in enumerate(logs)))
     return [dict(np.load(path)) for path in outs]
 
 

@@ -11,6 +11,9 @@ against the reference's ``'pallas'``, which runs inside ``shard_map`` only
 with the replication check off: it is taken through the reference's own
 model-D and model-C bodies (``cluster_sort_local``, ``merge_tree_local``),
 at the capacity the reference's ``'xla'`` run of the same case settled on.
+Model D with a payload sorts its slabs with the kernels as well
+(``local_impl='kernel'``), held against the reference's slabs of the same
+case: the stable (key, rank) network gives the library's permutation.
 (The reference's ``'bitonic'`` is no oracle for the kernel: it places -0.0
 and +0.0 otherwise.)  The reference's dense mesh ``sort_kv`` / ``argsort``
 and ``distributed_merge_sort`` do not run on this jax, so the mesh front
@@ -40,6 +43,11 @@ SORT_CASES = {f"{data}-{mode}-{impl}": (data, mode, impl)
 KV_CASES = {f"{data}-{mode}": (data, mode, False)
             for data, mode in [(d, m) for d in DATA for m in MODES] + [(d, "decimal") for d in DECIMAL]}
 KV_CASES["dup_heavy-float32-sample-compress"] = ("dup_heavy-float32", "sample", True)
+# model D with a payload also sorts its slabs with the kernels (local_impl
+# 'kernel', case name + "-kernel_kv"), for one partitioner of each family,
+# against the reference's slabs of the same case
+KV_KERNEL = [n for n, (_, mode, compress) in KV_CASES.items()
+             if mode in ("splitters", "decimal") and not compress]
 FRONT_CASES = {f"{data}-{mode}-{order}": (data, mode, order == "ascending")
                for data in DATA for mode in MODES
                for order in ("ascending", "descending")}
@@ -72,7 +80,8 @@ def _inputs() -> dict:
 
 
 _PARAMS = (f"M = {M}\nBLOCK_N = {BLOCK_N}\nSORT_CASES = {SORT_CASES!r}\n"
-           f"KV_CASES = {KV_CASES!r}\nFRONT_CASES = {FRONT_CASES!r}\nC_CASES = {C_CASES!r}\n"
+           f"KV_CASES = {KV_CASES!r}\nKV_KERNEL = {KV_KERNEL!r}\n"
+           f"FRONT_CASES = {FRONT_CASES!r}\nC_CASES = {C_CASES!r}\n"
            f"DISPATCH = {DISPATCH!r}\n") + """
 def on(cases):
     return [(n, c) for n, c in cases.items() if WORLD < 8 or c[1] == "decimal"]
@@ -152,10 +161,13 @@ for name, (data, mode, impl) in on(SORT_CASES):
     out[name + "/slab"], out[name + "/valid"] = slab.numpy(), valid.numpy()
 
 for name, (data, mode, compress) in on(KV_CASES):
-    vals = {"f": X("f"), "i": iota}
-    k, v, valid = cluster_sort_kv(X(data), vals, G, mode=mode, digits=3, compress=compress)
-    out[name + "/slab"], out[name + "/valid"] = k.numpy(), valid.numpy()
-    out[name + "/f"], out[name + "/i"] = v["f"].numpy(), v["i"].numpy()
+    for impl in ("xla", "kernel") if name in KV_KERNEL else ("xla",):
+        vals = {"f": X("f"), "i": iota}
+        k, v, valid = cluster_sort_kv(X(data), vals, G, mode=mode, digits=3, compress=compress,
+                                      local_impl=impl)
+        case = name if impl == "xla" else name + "-kernel_kv"
+        out[case + "/slab"], out[case + "/valid"] = k.numpy(), valid.numpy()
+        out[case + "/f"], out[case + "/i"] = v["f"].numpy(), v["i"].numpy()
 
 if WORLD < 8:
     for name, (data, mode, ascending) in FRONT_CASES.items():
@@ -209,12 +221,15 @@ def test_cluster_sort_matches_reference(results, world, name):
     np.testing.assert_array_equal(got, np.sort(keys))  # values; -0.0 == 0.0
 
 
-@pytest.mark.parametrize("world,name", [(w, n) for w in WORLDS for n in _on(w, KV_CASES)])
+@pytest.mark.parametrize("world,name", [(w, n) for w in WORLDS for n in _on(w, KV_CASES)]
+                         + [(w, n + "-kernel_kv") for w in WORLDS for n in _on(w, KV_CASES)
+                            if n in KV_KERNEL])
 def test_cluster_sort_kv_matches_reference(results, world, name):
     ref, port = results[0][world], results[1][world]
+    case = name.removesuffix("-kernel_kv")  # the kernels' slabs are the library's
     for field in ("slab", "valid", "f", "i"):
-        _same(concat(port, f"{name}/{field}"), ref[f"{name}/{field}"])
-    keys = _inputs()[KV_CASES[name][0]][: world * M]
+        _same(concat(port, f"{name}/{field}"), ref[f"{case}/{field}"])
+    keys = _inputs()[KV_CASES[case][0]][: world * M]
     valid = concat(port, name + "/valid")
     np.testing.assert_array_equal(concat(port, name + "/i")[valid],
                                   np.argsort(keys, kind="stable"))

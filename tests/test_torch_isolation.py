@@ -73,6 +73,16 @@ def test_chip_smoke_imports_no_jax_or_reference():
     assert not _FORBIDDEN_IMPORT.search(src)
 
 
+@pytest.mark.parametrize("name", ["_torch_multihost.py", "_torch_multihost_worker.py",
+                                  "_torch_multihost_bodies.py"])
+def test_multihost_harness_imports_no_jax_or_reference(name):
+    """The port's multihost harness, worker and bodies run on the card
+    machine (chip_smoke.py's multihost phase), which has no JAX."""
+    src = open(os.path.join(REPO, "tests", name)).read()
+    assert not _FORBIDDEN_IMPORT.search(src)
+    assert "multihost import" not in src and "tests.multihost" not in src
+
+
 _FRONT_DOORS = {
     "sort": lambda a, **kw: repro_torch.sort(a, **kw),
     "argsort": lambda a, **kw: engine.argsort(a, **kw),

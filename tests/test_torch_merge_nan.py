@@ -10,8 +10,10 @@ The reference's model B pads with ``+inf``, which sorts before NaN, so
 its output for keys holding NaN drops a NaN and holds an ``inf`` that was
 not in the input (its own fault, listed in ROADMAP Queue 3).  That output
 is the parity target of ``shared_memory_sort`` here, not a contract.  For
-``local_impl`` ``'bitonic'`` and ``'kernel'`` NaN output is unspecified:
-those tests only hold that no call raises and the shape is the input's.
+``local_impl`` ``'bitonic'`` and ``'kernel'`` the sorted NaN output is
+unspecified: those tests only hold that no call raises and the shape is the
+input's.  The kernel argsort and top-k rank floats on ``sort_image``, so
+their indices are held to ``impl='xla'``'s.
 Tolerance: exact (bit patterns) throughout.
 """
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from repro_torch import engine
 from repro_torch.core import merge
 from repro_torch.core.shared_sort import shared_memory_sort
 
-from _torch_parity import DTYPES, assert_bits_equal, cpu
+from _torch_parity import DTYPES, assert_bits_equal, cpu, make_keys
 
 FLOATS = ("float32", "float16", "bfloat16")
 SPECIAL = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
@@ -125,16 +127,31 @@ def test_unspecified_impls_do_not_raise_on_nan(local_impl, dtype):
         assert out.shape == (n,) and out.dtype == cpu(x).dtype
 
 
-@pytest.mark.parametrize("impl", ["xla", "kernel"])
-def test_argsort_with_nan_does_not_raise(impl):
-    """'xla' returns a permutation; the kernel's NaN order is unspecified
-    (a pad rank may displace a real one), so only its shape is held."""
-    x = nan_keys("float32", 300, seed=3)
+@pytest.mark.parametrize("n", [7, 100, 300])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_argsort_with_nan_does_not_raise(dtype, n):
+    """'kernel' ranks float keys on ``sort_image``, so a NaN never lets a
+    pad rank (>= n) into the first n: its permutation is 'xla''s, bit for
+    bit, in both directions, at lengths that need padding."""
+    x = nan_keys(dtype, n, seed=3) if dtype != "int32" else make_keys(dtype, n, 3, duplicates=True)
     for asc in (True, False):
-        idx = engine.argsort(x, ascending=asc, impl=impl, device="cpu")
-        assert idx.shape == (300,) and idx.dtype == torch.int32
-        if impl == "xla":
-            assert sorted(idx.tolist()) == list(range(300))
+        want = engine.argsort(x, ascending=asc, impl="xla", device="cpu")
+        got = engine.argsort(x, ascending=asc, impl="kernel", device="cpu")
+        assert got.dtype == want.dtype == torch.int32
+        assert sorted(want.tolist()) == list(range(n))
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("dtype", FLOATS)
+def test_kernel_topk_over_nan_logits_stays_in_range(dtype):
+    """A top-k of NaN-holding logits through the kernel (rows padded from
+    300 to 512): in-range indices, 'xla''s values and indices."""
+    x = nan_keys(dtype, 4 * 300, seed=11).reshape(4, 300)
+    vals, idx = engine.topk(x, 40, impl="kernel", device="cpu")
+    want_vals, want_idx = engine.topk(x, 40, impl="xla", device="cpu")
+    assert int(idx.min()) >= 0 and int(idx.max()) < 300
+    np.testing.assert_array_equal(idx.numpy(), want_idx.numpy())
+    assert_bits_equal(vals, want_vals)
 
 
 @pytest.mark.parametrize("dtype", FLOATS)
