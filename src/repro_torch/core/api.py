@@ -21,6 +21,7 @@ from dataclasses import replace
 from typing import Optional
 
 from repro_torch.carry import as_tensor
+from repro_torch.tracing import span
 
 __all__ = ["sort"]
 
@@ -53,10 +54,21 @@ def sort(
     ...      local_impl="kernel", n_threads=2).tolist()
     [1, 2, 3]
     """
-    from repro_torch.engine.planner import default_planner, plan_from_strategy, run_plan
+    from repro_torch.engine.planner import run_plan
+
+    with span("repro_torch.sort"):
+        x = as_tensor(x, device)
+        with span("repro_torch.plan"):
+            plan = _choose_plan(x, mesh, strategy, plan, local_impl, block_n, n_threads, kwargs)
+        return run_plan(plan, x, mesh=mesh, axis=axis, ascending=ascending, **kwargs)
+
+
+def _choose_plan(x, mesh, strategy, plan, local_impl, block_n, n_threads, kwargs):
+    """The plan ``sort`` runs; on a cluster plan with the loop on, the
+    learned factor and the telemetry callback go into ``kwargs``."""
+    from repro_torch.engine.planner import default_planner, plan_from_strategy
     from repro_torch.exchange import as_axis_group
 
-    x = as_tensor(x, device)
     # the plan key's length is the global one: on a mesh each rank holds a
     # shard of the same length
     n = x.shape[-1] if mesh is None else x.shape[-1] * as_axis_group(mesh).size
@@ -92,4 +104,4 @@ def sort(
                 device=x.device,
             )
         )
-    return run_plan(plan, x, mesh=mesh, axis=axis, ascending=ascending, **kwargs)
+    return plan

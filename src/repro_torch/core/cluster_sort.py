@@ -33,6 +33,7 @@ from repro_torch.exchange import (  # noqa: F401  (re-exported, as the reference
     slab_geometry,
     slab_valid,
 )
+from repro_torch.tracing import span
 
 from .radix import make_partitioner
 from .seqsort import fast_local_sort
@@ -63,7 +64,9 @@ def cluster_sort_local(
     globally sorted output; ``peak`` is the group-wide max per-(sender,
     bucket) element count, the signal capacity learning feeds on."""
     bucket = partitioner(local).to(torch.int32)
-    ex = partition_exchange(local, None, bucket, group, capacity=capacity, n_buckets=n_buckets)
+    with span("repro_torch.cluster.exchange", device=local):
+        ex = partition_exchange(local, None, bucket, group, capacity=capacity,
+                                n_buckets=n_buckets)
     flat = ex.recv_keys.reshape(-1)
     sorted_slab = fast_local_sort(flat, ascending=True, impl=local_impl, block_n=block_n)
     return (sorted_slab, *owned_count_and_peak(ex, group, n_buckets), ex.overflow)

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.tracing import span
+
 from .bitonic import next_pow2, sentinel_for
 from .merge import merge_adjacent
 from .seqsort import fast_local_sort
@@ -69,7 +71,8 @@ def shared_memory_sort(
     # Phase 2 — binary merge tree (Fig 2 steps a–d), one round per doubling
     width = tile
     while width < np2:
-        x = merge_adjacent(x, width)
+        with span("repro_torch.shared.merge", device=x):
+            x = merge_adjacent(x, width)
         width *= 2
     x = x[..., :n]
     return x if ascending else torch.flip(x, dims=(-1,))

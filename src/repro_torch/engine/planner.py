@@ -69,6 +69,7 @@ from repro_torch.core.distributed_sort import distributed_merge_sort
 from repro_torch.core.seqsort import LOCAL_SORTS
 from repro_torch.core.shared_sort import shared_memory_sort
 from repro_torch.exchange import PARTITION_MODES, AxisGroup, as_axis_group, partition_of
+from repro_torch.tracing import span
 
 from .adapt import CapacityLearner, ExchangeObservation, ExchangeTelemetry, LearnedCapacity
 
@@ -645,52 +646,53 @@ class Planner:
         """Fold one exchange observation into the learned table (and the
         telemetry ledger); persist when the planner has a file and the
         learned state moved materially."""
-        key = self.scoped_key(key)
-        self.telemetry.record(key, obs)
-        with self._lock:
-            prev = self.learned.get(key)
-            prev_cf = prev.capacity_factor if prev else default
-            cf = self.learner.update(prev_cf, obs, default=default)
-            prev_part = prev.partition if prev else None
-            strikes = self.learner.promotion_strikes(prev.skew_strikes if prev else 0, obs)
-            part = prev_part
-            calm = prev.calm_streak if prev else 0
-            demotions = prev.demotions if prev else 0
-            if part != "sample" and self.learner.should_promote(strikes):
-                part = "sample"  # the latch
-                calm = 0
-            elif part == "sample":
-                # promoted cell on probation: long calm stretches demote it
-                calm = self.learner.calm_streak(calm, obs)
-                if self.learner.should_demote(calm, demotions):
-                    part, strikes, calm = None, 0, 0
-                    demotions += 1
-            entry = LearnedCapacity(
-                capacity_factor=cf,
-                peak_factor=max(prev.peak_factor if prev else 0.0, obs.required_factor()),
-                observations=(prev.observations if prev else 0) + 1,
-                partition=part,
-                skew_strikes=strikes,
-                calm_streak=calm,
-                demotions=demotions,
-            )
-            self.learned[key] = entry
-            changed = part != prev_part or (
-                cf != prev_cf
-                and (
-                    abs(cf - prev_cf) >= self._SAVE_REL_DELTA * default
-                    or cf == default  # the decay's landing point: worth a write
+        with span("repro_torch.planner.observe"):
+            key = self.scoped_key(key)
+            self.telemetry.record(key, obs)
+            with self._lock:
+                prev = self.learned.get(key)
+                prev_cf = prev.capacity_factor if prev else default
+                cf = self.learner.update(prev_cf, obs, default=default)
+                prev_part = prev.partition if prev else None
+                strikes = self.learner.promotion_strikes(prev.skew_strikes if prev else 0, obs)
+                part = prev_part
+                calm = prev.calm_streak if prev else 0
+                demotions = prev.demotions if prev else 0
+                if part != "sample" and self.learner.should_promote(strikes):
+                    part = "sample"  # the latch
+                    calm = 0
+                elif part == "sample":
+                    # promoted cell on probation: long calm stretches demote it
+                    calm = self.learner.calm_streak(calm, obs)
+                    if self.learner.should_demote(calm, demotions):
+                        part, strikes, calm = None, 0, 0
+                        demotions += 1
+                entry = LearnedCapacity(
+                    capacity_factor=cf,
+                    peak_factor=max(prev.peak_factor if prev else 0.0, obs.required_factor()),
+                    observations=(prev.observations if prev else 0) + 1,
+                    partition=part,
+                    skew_strikes=strikes,
+                    calm_streak=calm,
+                    demotions=demotions,
                 )
-            )
-            self._stats_sinks = [r for r in self._stats_sinks if r() is not None]
-            sinks = list(self._stats_sinks)
-        for ref in sinks:
-            svc = ref()
-            if svc is not None:
-                svc._note_exchange(obs)
-        if changed and self.path:
-            self.save()
-        return entry
+                self.learned[key] = entry
+                changed = part != prev_part or (
+                    cf != prev_cf
+                    and (
+                        abs(cf - prev_cf) >= self._SAVE_REL_DELTA * default
+                        or cf == default  # the decay's landing point: worth a write
+                    )
+                )
+                self._stats_sinks = [r for r in self._stats_sinks if r() is not None]
+                sinks = list(self._stats_sinks)
+            for ref in sinks:
+                svc = ref()
+                if svc is not None:
+                    svc._note_exchange(obs)
+            if changed and self.path:
+                self.save()
+            return entry
 
     def exchange_recorder(self, key: str, *, default: float = 2.0):
         """A telemetry callback bound to this planner and a plan-cache key."""

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from repro_torch.tracing import span
+
 __all__ = ["run_with_capacity_retries"]
 
 
@@ -70,9 +72,11 @@ def run_with_capacity_retries(
         if attempt:
             cap = min(m, cap * 2)
         *outs, counts, att_peak, overflow = run_fn(cap)
-        peak = max(peak, int(att_peak))
+        with span("repro_torch.retry.read"):  # the host waits for the attempt here
+            att_peak, overflow = int(att_peak), bool(overflow)
+        peak = max(peak, att_peak)
         retries = attempt
-        if not bool(overflow):
+        if not overflow:
             report(overflowed=attempt > 0)
             return outs, counts
         if cap >= m:
