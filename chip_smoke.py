@@ -11,7 +11,8 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            8 rows x 2^21 keys, block_n 1024, MAX_BLOCK_N and 2 * MAX_BLOCK_N
            (A, B and their kv twins composed from launches at the cap), for
            float32, int32, float16 and bfloat16: compared bit for bit (B and
-           B-kv at stages k = 2 * block_n, 4 * block_n and 2^21)
+           B-kv at stages k = 2 * block_n, 4 * block_n and 2^21; C and C-kv
+           at one substage and at a fused span of GLOBAL_SPAN substages)
   sort     repro_torch.sort of 10,000,000 float32 keys (model B, 8 tiles,
            local_impl="kernel"), both directions, against the plain bitonic
            network (bits) and torch.sort (values)
@@ -96,7 +97,7 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            serve.sample_next is wrapped to read each step's logits, time
            (host clock, ending in a synchronize), launches and batches.
            Checks: the same tokens on every route; each batch the service
-           runs (and each cell it builds) launches A-kv 1, B-kv 8, C-kv 36;
+           runs (and each cell it builds) launches A-kv 1, B-kv 8, C-kv 12;
            each step's top-16 from the kernel route equals numpy's stable
            argsort of -logits; prefill's and every decode step's logits
            against one forward over the same tokens (bf16: relative L2 at
@@ -184,7 +185,8 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
 
 The mesh phases' lines carry the card's name and power limit as nvidia-smi
 gives them.  Then the kernels line (launches on every path, time per
-launch, bound (the larger of the bytes' and the compare-exchanges' least
+launch (C and C-kv at one substage and at a fused span, whose launches are
+counted on the one-substage wrapper), bound (the larger of the bytes' and the compare-exchanges' least
 time), its share, plain and library times; the library time of A, B and
 their kv twins is torch.sort over the same tiles, which the port never
 calls) and, last, the ok line.  Any failed check raises, so the script exits
@@ -316,6 +318,8 @@ REPLACES = {
     "block_merge_kv": f"{PALLAS}:143",
     "global_stage_kv": f"{PALLAS}:244",
 }
+# kernel C's fused launch over GLOBAL_SPAN substages, counted on the wrapper named
+FUSED = {"global_stages": "global_stage", "global_stages_kv": "global_stage_kv"}
 
 
 def emit(obj) -> None:
@@ -373,7 +377,7 @@ def phase_parity(kernels, device) -> dict:
     """Every kernel against its plain version on the same card tensors."""
     rows, n = 8, 1 << 21
     gen = torch.Generator(device=device).manual_seed(0)
-    worst = {name: 0.0 for name in REPLACES}
+    worst = {name: 0.0 for name in (*REPLACES, *FUSED)}
     cases = 0
     for dtype in (torch.float32, torch.int32, torch.float16, torch.bfloat16):
         x = make_keys(dtype, (rows, n), gen, device)
@@ -399,6 +403,15 @@ def phase_parity(kernels, device) -> dict:
                 runs[f"global_stage_kv@{j},{kk}"] = (
                     lambda j=j, kk=kk: kernels.global_stage_kv(x, r, j, kk),
                     lambda j=j, kk=kk: kernels.plain_global_stage(x, r, j, kk))
+            span = kernels.GLOBAL_SPAN - 1  # the widest fused launch: j_lo = j_hi >> span
+            for j, kk in ((block_n << span, block_n << (span + 1)), (n // 2, n)) \
+                    if block_n <= kernels.MAX_BLOCK_N else ():
+                runs[f"global_stages@{j},{kk}"] = (
+                    lambda j=j, kk=kk: (kernels.global_stages(x, j, j >> span, kk), None),
+                    lambda j=j, kk=kk: kernels.plain_global_stages(x, None, j, j >> span, kk))
+                runs[f"global_stages_kv@{j},{kk}"] = (
+                    lambda j=j, kk=kk: kernels.global_stages_kv(x, r, j, j >> span, kk),
+                    lambda j=j, kk=kk: kernels.plain_global_stages(x, r, j, j >> span, kk))
             for label, (kernel_fn, plain_fn) in runs.items():
                 got, got_r = kernel_fn()
                 want, want_r = plain_fn()
@@ -417,11 +430,15 @@ def phase_parity(kernels, device) -> dict:
 
 def expected_launches(n: int, block_n: int, kv: bool) -> dict:
     """Launches of one sort of rows of length n: A once, then per stage above
-    the tile one B and one C per substage at distance >= block_n."""
-    stages = max(0, (n - 1).bit_length() - block_n.bit_length() + 1)
+    the tile one B and the C launches of its substages at distance >= block_n
+    (``global_spans``: up to GLOBAL_SPAN substages a launch)."""
+    from repro_torch.kernels.bitonic_sort.bitonic_sort import global_spans
+
+    stages = [1 << s for s in range(block_n.bit_length(), (n - 1).bit_length() + 1)]
     suffix = "_kv" if kv else ""
-    counts = {f"block_sort{suffix}": 1, f"global_stage{suffix}": stages * (stages + 1) // 2,
-              f"block_merge{suffix}": stages}
+    counts = {f"block_sort{suffix}": 1,
+              f"global_stage{suffix}": sum(len(global_spans(k // 2, block_n)) for k in stages),
+              f"block_merge{suffix}": len(stages)}
     return {k: v for k, v in counts.items() if v}
 
 
@@ -2606,6 +2623,7 @@ def main() -> None:
     check(bool(torch.isfinite(got).all()) and got.shape == x.shape, "sort: shape or finiteness")
     emit({"phase": "sort", "n": SORT_N, "dtype": "float32", "padded": 1 << 24, **sort_kw,
           "launches": counts, "launches_descending": counts_desc,
+          "substages": kernels.substage_counts(),
           "bitwise_equal_plain_bitonic": True, "equal_torch_sort": True})
 
     # -- main path: stable argsort and sort_kv of 10M duplicate-heavy int32 keys
@@ -2613,6 +2631,7 @@ def main() -> None:
     idx, counts = counted(kernels, lambda: engine.argsort(keys, impl="kernel"))
     add(counts)
     check(counts == expected_launches(SORT_N, 1024, kv=True), f"argsort launches {counts}")
+    argsort_substages = kernels.substage_counts()
     want_idx = torch.argsort(keys, stable=True)
     check(torch.equal(idx.long(), want_idx), "argsort: differs from torch.argsort(stable=True)")
     payload = torch.randn(SORT_N, 4, generator=gen, device=device)
@@ -2622,6 +2641,7 @@ def main() -> None:
     check(torch.equal(sv["p"], payload[want_idx]), "sort_kv: payload differs")
     emit({"phase": "argsort", "n": SORT_N, "dtype": "int32", "key_range": [0, 1000],
           "launches_argsort": counts, "launches_sort_kv": counts_kv,
+          "substages_argsort": argsort_substages,
           "equal_torch_argsort_stable": True, "payload": [SORT_N, 4]})
 
     # -- main path: decode top-k over a real vocabulary, with ties on purpose
@@ -2717,7 +2737,7 @@ def main() -> None:
                           "device_ms": prof["device_ms"],
                           "device_idle_share": 1.0 - prof["device_ms"] / ms if prof["device_ms"] else None,
                           "top_device_kernels_ms": prof["top"]}
-    # the tile width trades C launches (one per substage above the tile) for
+    # the tile width trades C launches (up to GLOBAL_SPAN substages above the tile each) for
     # longer shared-memory networks in A and B
     sweep = {}
     for bn in (1024, 4096, kernels.MAX_BLOCK_N):
@@ -2747,6 +2767,7 @@ def main() -> None:
 
     log_bn = bn.bit_length() - 1
     sort_substages = log_bn * (log_bn + 1) // 2  # kernel A's stages 2 .. bn
+    span = kernels.GLOBAL_SPAN  # substages of C's widest fused launch
     timed = {
         "block_sort": ((lambda: kernels.block_sort(xs, bn)),
                        (lambda: kernels.plain_block_sort(xs, None, bn)), tile_sort,
@@ -2766,6 +2787,13 @@ def main() -> None:
         "global_stage_kv": ((lambda: kernels.global_stage_kv(kv_keys, kv_r, 1 << 23, 1 << 24)),
                             (lambda: kernels.plain_global_stage(kv_keys, kv_r, 1 << 23, 1 << 24)),
                             None, 1 << 24, 4, True, 1),
+        "global_stages": ((lambda: kernels.global_stages(xs, n // 2, n >> span, n)),
+                          (lambda: kernels.plain_global_stages(xs, None, n // 2, n >> span, n)),
+                          None, rows * n, 4, False, span),
+        "global_stages_kv": (
+            (lambda: kernels.global_stages_kv(kv_keys, kv_r, 1 << 23, 1 << (24 - span), 1 << 24)),
+            (lambda: kernels.plain_global_stages(kv_keys, kv_r, 1 << 23, 1 << (24 - span), 1 << 24)),
+            None, 1 << 24, 4, True, span),
     }
     entries = []
     for kname, (kernel_fn, plain_fn, library_fn, elems, itemsize, ranks, substages) in timed.items():
@@ -2776,8 +2804,9 @@ def main() -> None:
             "name": kname,
             "route": "cuda",
             "source": SOURCE,
-            "replaces": REPLACES[kname],
-            "launches": launches[kname],
+            "replaces": REPLACES[FUSED.get(kname, kname)],
+            "launches": launches[kname] if kname in launches else f"counted on {FUSED[kname]}",
+            "substages": substages,
             "max_abs_err": parity["max_abs_err"][kname],
             "ms": ms,
             "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
@@ -2802,7 +2831,10 @@ def main() -> None:
                  "block_merge_kv": time_ms(lambda: kernels.block_merge_kv(tk_keys, tk_r, bn, 1 << 18),
                                            reps=20),
                  "global_stage_kv": time_ms(
-                     lambda: kernels.global_stage_kv(tk_keys, tk_r, 1 << 17, 1 << 18), reps=20)}})
+                     lambda: kernels.global_stage_kv(tk_keys, tk_r, 1 << 17, 1 << 18), reps=20),
+                 "global_stages_kv": time_ms(
+                     lambda: kernels.global_stages_kv(tk_keys, tk_r, 1 << 17, 1 << 14, 1 << 18),
+                     reps=20)}})
     emit({"phase": "launch_host_us", "shape": [1, 4096], "block_n": 1024, "calls": 200,
           "us": launch_host_us(kernels, device)})
     emit({"phase": "tile_variants", "block_n": bn, "reps": 20,

@@ -10,9 +10,17 @@ loads it with ``ctypes``, and wraps each kernel:
   B     block_merge    / block_merge_kv    substages j = block_n/2 .. 1 of one
                                            stage k > block_n, fused per tile
   C     global_stage   / global_stage_kv   one cross-tile substage j >= block_n
+        global_stages  / global_stages_kv  the cross-tile substages j_hi .. j_lo
+                                           of one stage in one pass (at most
+                                           GLOBAL_SPAN of them)
 
 A and B are one CUDA kernel body (``tile_network``) that holds a tile in
-registers and runs stages k_first .. k_last of it (``_tile_geometry``).
+registers and runs stages k_first .. k_last of it (``_tile_geometry``).  C
+holds groups of up to 2**GLOBAL_SPAN keys a thread in registers: a stage's
+substages at distances >= block_n take ``global_spans`` launches, a pass over
+memory each, instead of one a substage.  Both C wrappers count their launches
+on ``global_stage(_kv).launches`` and the substages those ran on
+``.substages`` (``substage_counts``).
 
 Every wrapper takes a contiguous tensor whose last axis (length n, a power of
 two) is sorted row by row; the leading dims are rows of the kernel grid.  The
@@ -52,16 +60,24 @@ __all__ = [
     "block_sort_kv",
     "block_merge_kv",
     "global_stage_kv",
+    "global_stages",
+    "global_stages_kv",
+    "GLOBAL_SPAN",
+    "global_spans",
     "build",
     "plain_block_sort",
     "plain_block_merge",
     "plain_global_stage",
+    "plain_global_stages",
     "launch_counts",
+    "substage_counts",
     "reset_launch_counts",
 ]
 
 # f32 keys + int32 ranks at 16384 is 128 KiB of the 227 KiB a block may use
 MAX_BLOCK_N = 16384
+# most cross-tile substages one launch of kernel C runs (csrc: kGlobalSpan)
+GLOBAL_SPAN = 4
 _SMEM_PER_BLOCK = 232_448  # dynamic shared memory one sm_90 block may use
 _TILE_MIN_THREADS = 128  # narrower tiles are packed several to a block
 _TILE_BARRIER_BYTES = 8  # the tile kernel's mbarrier, after its slot
@@ -111,7 +127,7 @@ def _lib() -> ctypes.CDLL:
     lib.bitonic_tile_network.argtypes = [
         i32, ptr, ptr, ptr, ptr, i64, i64, i32, i64, i64, i64, i32, i32, i32, i32, ptr,
     ]
-    lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
+    lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr]
     for fn in (lib.bitonic_tile_network, lib.bitonic_global_stage):
         fn.restype = i32
     lib.bitonic_error_string.argtypes = [i32]
@@ -272,9 +288,36 @@ def plain_global_stage(x, r, j: int, k: int, f: int = 0):
     return _ce_plain(x, r, j, _directions(_group_starts(x.shape[-1], j, x.device), k, f))
 
 
-def _check_stage(n: int, j: int, k: int) -> None:
+def plain_global_stages(x, r, j_hi: int, j_lo: int, k: int, f: int = 0):
+    """One launch of kernel C (or C-kv) over substages j_hi .. j_lo in plain
+    torch: those substages one by one, as the kernel runs them in registers."""
+    j = j_hi
+    while j >= j_lo:
+        x, r = plain_global_stage(x, r, j, k, f)
+        j //= 2
+    return x, r
+
+
+def global_spans(j_hi: int, j_lo: int) -> tuple:
+    """The launches of kernel C that run the substages j_hi, j_hi/2, .., j_lo
+    of one stage: ``(j_hi, j_lo)`` of each, in order, ceil(d / GLOBAL_SPAN) of
+    them for d substages, split as evenly as they go (the wider first)."""
+    d = j_hi.bit_length() - j_lo.bit_length() + 1
+    launches = -(-d // GLOBAL_SPAN)
+    spans = []
+    for i in range(launches):
+        s = d // launches + (i < d % launches)
+        spans.append((j_hi, j_hi >> (s - 1)))
+        j_hi >>= s
+    return tuple(spans)
+
+
+def _check_stage(n: int, j: int, k: int, j_lo: int | None = None) -> None:
     if not (_is_pow2(j) and _is_pow2(k) and 2 * j <= k <= n):
         raise ValueError(f"need powers of two with 2*j <= k <= n, got j={j} k={k} n={n}")
+    if j_lo is not None and not (_is_pow2(j_lo) and j_lo <= j < j_lo << GLOBAL_SPAN):
+        raise ValueError(
+            f"need a power of two j_lo <= j_hi within {GLOBAL_SPAN} substages, got j_hi={j} j_lo={j_lo}")
 
 
 @functools.cache
@@ -287,7 +330,8 @@ def _tile_launches(block_n: int, k: int | None, cap: int = MAX_BLOCK_N) -> tuple
     Up to ``cap`` this is one launch.  A wider tile W runs A at the cap with
     parity mask f = W, then each stage k = 2*cap .. W as C for j = k/2 .. cap
     and B at the cap, all with f = W; B on W-wide tiles is C for
-    j = W/2 .. cap, then B at the cap."""
+    j = W/2 .. cap, then B at the cap.  C's substages are grouped by
+    ``global_spans``: a step ``("global", j_hi, j_lo, k, f)`` is one launch."""
     if block_n <= cap:
         return (("sort", block_n, 2, block_n, block_n),) if k is None else (("merge", block_n, k, k, 0),)
     steps, f = [], 0
@@ -297,10 +341,7 @@ def _tile_launches(block_n: int, k: int | None, cap: int = MAX_BLOCK_N) -> tuple
     else:
         stages = [k]
     for kk in stages:
-        j = min(kk, block_n) // 2
-        while j >= cap:
-            steps.append(("global", j, kk, f))
-            j //= 2
+        steps += [("global", *span, kk, f) for span in global_spans(min(kk, block_n) // 2, cap)]
         steps.append(("merge", cap, kk, kk, f))
     return tuple(steps)
 
@@ -317,10 +358,14 @@ def _launch_tile(x, r, kind: str, block_n: int, k_first: int, k_last: int, f: in
     return out, out_r
 
 
-def _launch_global(x, r, j: int, k: int, f: int):
+def _launch_global(x, r, j_hi: int, j_lo: int, k: int, f: int):
+    """One launch of kernel C over substages j_hi .. j_lo, counted on the
+    one-substage wrapper with the substages it ran."""
     out, out_r = torch.empty_like(x), None if r is None else torch.empty_like(r)
-    _launch("bitonic_global_stage", x, r, out, out_r, j, k, f)
-    (global_stage if r is None else global_stage_kv).launches += 1
+    _launch("bitonic_global_stage", x, r, out, out_r, j_hi, j_lo, k, f)
+    counted = global_stage if r is None else global_stage_kv
+    counted.launches += 1
+    counted.substages += j_hi.bit_length() - j_lo.bit_length() + 1
     return out, out_r
 
 
@@ -362,7 +407,17 @@ def global_stage(x: torch.Tensor, j: int, k: int) -> torch.Tensor:
     _check_stage(n, j, k)
     if not _on_cuda(x):
         return plain_global_stage(x, None, j, k)[0]
-    return _launch_global(x, None, j, k, 0)[0]
+    return _launch_global(x, None, j, j, k, 0)[0]
+
+
+def global_stages(x: torch.Tensor, j_hi: int, j_lo: int, k: int) -> torch.Tensor:
+    """Kernel C over substages j_hi, j_hi/2, .., j_lo of stage ``k`` in one
+    pass (at most ``GLOBAL_SPAN`` of them): ``global_stage`` at each in turn."""
+    n = _check(x, None)
+    _check_stage(n, j_hi, k, j_lo)
+    if not _on_cuda(x):
+        return plain_global_stages(x, None, j_hi, j_lo, k)[0]
+    return _launch_global(x, None, j_hi, j_lo, k, 0)[0]
 
 
 def block_sort_kv(x: torch.Tensor, r: torch.Tensor, block_n: int):
@@ -391,12 +446,20 @@ def global_stage_kv(x: torch.Tensor, r: torch.Tensor, j: int, k: int):
     _check_stage(n, j, k)
     if not _on_cuda(x):
         return plain_global_stage(x, r, j, k)
-    return _launch_global(x, r, j, k, 0)
+    return _launch_global(x, r, j, j, k, 0)
+
+
+def global_stages_kv(x: torch.Tensor, r: torch.Tensor, j_hi: int, j_lo: int, k: int):
+    """Kernel C-kv over substages j_hi .. j_lo of stage ``k`` in one pass ->
+    (keys, ranks)."""
+    n = _check(x, r)
+    _check_stage(n, j_hi, k, j_lo)
+    if not _on_cuda(x):
+        return plain_global_stages(x, r, j_hi, j_lo, k)
+    return _launch_global(x, r, j_hi, j_lo, k, 0)
 
 
 KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv, global_stage_kv)
-for _kernel in KERNELS:
-    _kernel.launches = 0
 
 
 def launch_counts() -> dict:
@@ -404,6 +467,16 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
+def substage_counts() -> dict:
+    """Substages that C and C-kv launches ran since the last reset: over
+    their ``launch_counts``, how many substages a pass took."""
+    return {fn.__name__: fn.substages for fn in (global_stage, global_stage_kv)}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    global_stage.substages = global_stage_kv.substages = 0
+
+
+reset_launch_counts()

@@ -70,7 +70,16 @@
 //   tiles per block, shared bytes) comes from bitonic_sort.py:_tile_geometry
 //   and is validated here.
 //
-// C / C-kv: one thread per compare-exchange pair, grid-stride loop, out of place.
+// C / C-kv (global_stage_kernel): the cross-tile substages j_hi .. j_lo of one
+//   stage k > block_n in one pass over memory.  Each launch reads and writes
+//   the whole array, so a stage's d substages at distances >= block_n cost d
+//   passes one at a time; their pairs stay within groups of 2^d elements, so a
+//   thread holds up to 2^kGlobalSpan of them (one group, a stride of j_lo
+//   apart) in registers, runs up to kGlobalSpan substages there and stores
+//   once: ceil(d / kGlobalSpan) passes a stage (bitonic_sort.py:global_spans).
+//   Lanes own neighbouring groups, so every load and store of a warp is one
+//   coalesced line.  Grid-stride loop, out of place; one substage (j_hi = j_lo)
+//   is the reference's global_stage.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -86,20 +95,8 @@
 
 namespace {
 
-__device__ __forceinline__ float cmp_value(float v) { return v; }
-__device__ __forceinline__ int32_t cmp_value(int32_t v) { return v; }
-__device__ __forceinline__ float cmp_value(__half v) { return __half2float(v); }
-__device__ __forceinline__ float cmp_value(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Position of the first element of compare-exchange pair p at distance j:
-// pairs are numbered group by group, j pairs to a group of 2j elements.
-template <typename I>
-__device__ __forceinline__ I pair_index(I p, I j) {
-  return ((p & ~(j - 1)) << 1) | (p & (j - 1));
-}
-
 // ------------------------------------------------------------ kernels A, B ---
-// The tile kernel moves keys as raw bits (U) and converts only to compare.
+// The kernels move keys as raw bits (U) and convert only to compare.
 template <typename T> struct KeyBits;
 template <> struct KeyBits<float> {
   using U = uint32_t;
@@ -119,6 +116,10 @@ template <> struct KeyBits<__nv_bfloat16> {
     return __bfloat162float(__ushort_as_bfloat16(u));
   }
 };
+
+// Most cross-tile substages one launch of kernel C runs: 2^4 keys (and ranks)
+// a thread in registers (bitonic_sort.py:GLOBAL_SPAN).
+constexpr int kGlobalSpan = 4;
 
 // Threads a tile block may have for E keys a thread (its __launch_bounds__);
 // _tile_geometry never asks for more.
@@ -534,39 +535,54 @@ __global__ void __launch_bounds__(tile_max_threads(E))
                                       tiles_per_block, k_first, k_last, f);
 }
 
-// Kernel C: one cross-tile substage at distance j of stage k, over all rows,
-// with parity mask f.
-template <typename T, bool HAS_RANK>
-__global__ void global_stage_kernel(const T* __restrict__ x, const int32_t* __restrict__ r,
-                                    T* __restrict__ ox, int32_t* __restrict__ orank,
-                                    int64_t pairs, int log_half_n, int64_t j, int64_t k,
-                                    int64_t f) {
-  const int64_t half_n = int64_t{1} << log_half_n;
-  const int64_t stride = int64_t{gridDim.x} * blockDim.x;
+// Kernel C: the cross-tile substages j_hi, j_hi/2, .., j_lo of stage k in one
+// pass over all rows, with parity mask f.  The 2^S elements i0 + m*j_lo
+// (m < 2^S, S = log2(j_hi/j_lo) + 1 <= kGlobalSpan) exchange only among
+// themselves in those substages, so one thread owns them: it loads the group
+// into registers, runs the substages in order (j_hi first: bit S-1 of m, down
+// to bit 0) and stores the group once.  i0 is the thread's group number with S
+// zero bits put in at bit log2(j_lo), so neighbouring lanes hold neighbouring
+// i0 and each of the thread's loads and stores is one coalesced line once
+// j_lo >= 32.  k and f lie above the group's bits (2*j_hi <= k, f 0 or >= k),
+// so every pair of the group takes i0's direction.  S is a template argument, so a
+// short span holds only its 2^S keys (and ranks): one substage in a kernel
+// sized for 16 keys a thread ran at half the byte rate of two a thread.
+template <typename T, bool HAS_RANK, int S>
+__global__ void __launch_bounds__(256)
+    global_stage_kernel(const typename KeyBits<T>::U* __restrict__ x,
+                        const int32_t* __restrict__ r, typename KeyBits<T>::U* __restrict__ ox,
+                        int32_t* __restrict__ orank, int64_t groups, int log_n, int log_j_lo,
+                        int64_t k, int64_t f) {
+  using U = typename KeyBits<T>::U;
+  constexpr int G = 1 << S;
+  const int log_row_groups = log_n - S;
+  const int64_t row_groups = int64_t{1} << log_row_groups;
+  const int64_t j_lo = int64_t{1} << log_j_lo;
   const int64_t kmask = k & (f - 1);
-  for (int64_t p = int64_t{blockIdx.x} * blockDim.x + threadIdx.x; p < pairs; p += stride) {
-    const int64_t row = p >> log_half_n;
-    const int64_t i = pair_index(p & (half_n - 1), j);  // index within the row
-    const bool dir_up = ((i & kmask) == 0) == ((i & f) == 0);
-    const int64_t ia = (row << (log_half_n + 1)) + i;
-    const int64_t ib = ia + j;
-    const T a = x[ia];
-    const T b = x[ib];
-    const auto ca = cmp_value(a);
-    const auto cb = cmp_value(b);
-    bool gt = ca > cb;
-    int32_t ra = 0, rb = 0;
-    if constexpr (HAS_RANK) {
-      ra = r[ia];
-      rb = r[ib];
-      gt = gt || (ca == cb && ra > rb);
+  const int64_t stride = int64_t{gridDim.x} * blockDim.x;
+  for (int64_t g = int64_t{blockIdx.x} * blockDim.x + threadIdx.x; g < groups; g += stride) {
+    const int64_t gi = g & (row_groups - 1);
+    const int64_t i0 = ((gi >> log_j_lo) << (log_j_lo + S)) | (gi & (j_lo - 1));
+    const bool dir_up = ((i0 & kmask) == 0) == ((i0 & f) == 0);
+    const int64_t base = ((g >> log_row_groups) << log_n) + i0;
+    U key[G];
+    int32_t rk[G];
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      key[m] = x[base + (int64_t{m} << log_j_lo)];
+      if constexpr (HAS_RANK) rk[m] = r[base + (int64_t{m} << log_j_lo)];
     }
-    const bool swap = gt == dir_up;
-    ox[ia] = swap ? b : a;
-    ox[ib] = swap ? a : b;
-    if constexpr (HAS_RANK) {
-      orank[ia] = swap ? rb : ra;
-      orank[ib] = swap ? ra : rb;
+#pragma unroll
+    for (int b = S - 1; b >= 0; --b) {
+#pragma unroll
+      for (int m = 0; m < G; ++m) {
+        if (!(m & (1 << b))) ce_regs<T, HAS_RANK, G>(key, rk, m, m | (1 << b), dir_up);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      ox[base + (int64_t{m} << log_j_lo)] = key[m];
+      if constexpr (HAS_RANK) orank[base + (int64_t{m} << log_j_lo)] = rk[m];
     }
   }
 }
@@ -687,18 +703,39 @@ cudaError_t launch_tile(const void* x, const void* r, void* ox, void* orank, int
   }
 }
 
+template <typename T, bool HAS_RANK, int S>
+cudaError_t launch_span(const void* x, const void* r, void* ox, void* orank, int64_t rows,
+                        int64_t n, int64_t j_lo, int64_t k, int64_t f, cudaStream_t stream) {
+  using U = typename KeyBits<T>::U;
+  const int64_t groups = (rows * n) >> S;
+  if (groups == 0) return cudaSuccess;
+  const int threads = 256;
+  int64_t blocks = (groups + threads - 1) / threads;
+  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
+  global_stage_kernel<T, HAS_RANK, S><<<unsigned(blocks), threads, 0, stream>>>(
+      static_cast<const U*>(x), static_cast<const int32_t*>(r), static_cast<U*>(ox),
+      static_cast<int32_t*>(orank), groups, log2_exact(n), log2_exact(j_lo), k, f);
+  return cudaGetLastError();
+}
+
+// Validates the span before any launch (cudaErrorInvalidValue otherwise):
+// powers of two with j_lo <= j_hi, 2*j_hi <= k <= n, at most kGlobalSpan
+// substages, f 0 or a power of two in [k, n].
 template <typename T, bool HAS_RANK>
 cudaError_t launch_global(const void* x, const void* r, void* ox, void* orank, int64_t rows,
-                          int64_t n, int64_t j, int64_t k, int64_t f, cudaStream_t stream) {
-  const int64_t pairs = rows * (n / 2);
-  if (pairs == 0) return cudaSuccess;
-  const int threads = 256;
-  int64_t blocks = (pairs + threads - 1) / threads;
-  if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
-  global_stage_kernel<T, HAS_RANK><<<unsigned(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(r), static_cast<T*>(ox),
-      static_cast<int32_t*>(orank), pairs, log2_exact(n / 2), j, k, f);
-  return cudaGetLastError();
+                          int64_t n, int64_t j_hi, int64_t j_lo, int64_t k, int64_t f,
+                          cudaStream_t stream) {
+  const bool ok = is_pow2(n) && is_pow2(k) && is_pow2(j_hi) && is_pow2(j_lo) && j_lo <= j_hi &&
+                  2 * j_hi <= k && k <= n && (f == 0 || (is_pow2(f) && f >= k && f <= n));
+  if (!ok) return cudaErrorInvalidValue;
+  static_assert(kGlobalSpan == 4, "one case a span length below");
+  switch (log2_exact(j_hi / j_lo) + 1) {
+    case 1: return launch_span<T, HAS_RANK, 1>(x, r, ox, orank, rows, n, j_lo, k, f, stream);
+    case 2: return launch_span<T, HAS_RANK, 2>(x, r, ox, orank, rows, n, j_lo, k, f, stream);
+    case 3: return launch_span<T, HAS_RANK, 3>(x, r, ox, orank, rows, n, j_lo, k, f, stream);
+    case 4: return launch_span<T, HAS_RANK, 4>(x, r, ox, orank, rows, n, j_lo, k, f, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // dtype codes, as bitonic_sort.py passes them
@@ -725,9 +762,9 @@ cudaError_t dispatch_tile(int dtype, const void* x, const void* r, void* ox, voi
 
 template <bool HAS_RANK>
 cudaError_t dispatch_global(int dtype, const void* x, const void* r, void* ox, void* orank,
-                            int64_t rows, int64_t n, int64_t j, int64_t k, int64_t f,
-                            cudaStream_t s) {
-  DISPATCH_DTYPE(launch_global, HAS_RANK, x, r, ox, orank, rows, n, j, k, f, s)
+                            int64_t rows, int64_t n, int64_t j_hi, int64_t j_lo, int64_t k,
+                            int64_t f, cudaStream_t s) {
+  DISPATCH_DTYPE(launch_global, HAS_RANK, x, r, ox, orank, rows, n, j_hi, j_lo, k, f, s)
 }
 
 }  // namespace
@@ -749,13 +786,13 @@ extern "C" int bitonic_tile_network(int dtype, const void* x, const void* r, voi
                                   threads_per_tile, elems, tiles_per_block, smem, s);
 }
 
-// Kernel C: substage j of stage k, parity mask f.
+// Kernel C: substages j_hi .. j_lo of stage k in one pass, parity mask f.
 extern "C" int bitonic_global_stage(int dtype, const void* x, const void* r, void* ox,
-                                    void* orank, long long rows, long long n, long long j,
-                                    long long k, long long f, void* stream) {
+                                    void* orank, long long rows, long long n, long long j_hi,
+                                    long long j_lo, long long k, long long f, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return r ? dispatch_global<true>(dtype, x, r, ox, orank, rows, n, j, k, f, s)
-           : dispatch_global<false>(dtype, x, r, ox, orank, rows, n, j, k, f, s);
+  return r ? dispatch_global<true>(dtype, x, r, ox, orank, rows, n, j_hi, j_lo, k, f, s)
+           : dispatch_global<false>(dtype, x, r, ox, orank, rows, n, j_hi, j_lo, k, f, s);
 }
 
 extern "C" const char* bitonic_error_string(int err) {

@@ -6,7 +6,8 @@ sorts the last axis of any length >= 1: it pads to the next power of two with
 
   phase 1:  kernel A  (per-tile alternating-direction sort)
   stages k = 2*block_n .. n:
-     j = k/2 .. block_n   : kernel C, one launch per substage
+     j = k/2 .. block_n   : kernel C, up to GLOBAL_SPAN substages a pass, in
+                            registers (``global_spans``)
      j = block_n/2 .. 1   : kernel B (all of them in one pass, in registers)
 
 Leading dims are rows of the kernel grid (the reference ``vmap``s its 1-D
@@ -41,8 +42,9 @@ from .bitonic_sort import (
     block_merge_kv,
     block_sort,
     block_sort_kv,
-    global_stage,
-    global_stage_kv,
+    global_spans,
+    global_stages,
+    global_stages_kv,
 )
 
 __all__ = [
@@ -119,31 +121,29 @@ def _padded_rows(x: torch.Tensor, block_n: int):
 
 
 def _sort_rows(x: torch.Tensor, block_n: int) -> torch.Tensor:
-    """The launch sequence of the reference's ``_pallas_sort_impl``."""
+    """The network of the reference's ``_pallas_sort_impl``, its cross-tile
+    substages run a span at a time."""
     n = x.shape[-1]
     x = block_sort(x, block_n)
     k = 2 * block_n
     while k <= n:
-        j = k // 2
-        while j >= block_n:
-            x = global_stage(x, j, k)
-            j //= 2
+        for j_hi, j_lo in global_spans(k // 2, block_n):
+            x = global_stages(x, j_hi, j_lo, k)
         x = block_merge(x, block_n, k)
         k *= 2
     return x
 
 
 def _argsort_rows(x: torch.Tensor, block_n: int):
-    """The launch sequence of the reference's ``_pallas_argsort_impl``."""
+    """The network of the reference's ``_pallas_argsort_impl``, its
+    cross-tile substages run a span at a time."""
     n = x.shape[-1]
     r = torch.arange(n, dtype=torch.int32, device=x.device).expand(x.shape).contiguous()
     x, r = block_sort_kv(x, r, block_n)
     k = 2 * block_n
     while k <= n:
-        j = k // 2
-        while j >= block_n:
-            x, r = global_stage_kv(x, r, j, k)
-            j //= 2
+        for j_hi, j_lo in global_spans(k // 2, block_n):
+            x, r = global_stages_kv(x, r, j_hi, j_lo, k)
         x, r = block_merge_kv(x, r, block_n, k)
         k *= 2
     return x, r

@@ -225,14 +225,19 @@ def test_tiles_above_the_cap_match_pallas(has_rank):
 
 def test_tile_launches_above_the_cap():
     """What the card runs for a tile above the cap: A at the cap with parity
-    mask W, then per stage C down to the cap and B at the cap."""
+    mask W, then per stage C's substages down to the cap, up to GLOBAL_SPAN of
+    them a launch, and B at the cap."""
     assert kernels._tile_launches(64, None, 16) == (
         ("sort", 16, 2, 16, 64),
-        ("global", 16, 32, 64), ("merge", 16, 32, 32, 64),
-        ("global", 32, 64, 64), ("global", 16, 64, 64), ("merge", 16, 64, 64, 64),
+        ("global", 16, 16, 32, 64), ("merge", 16, 32, 32, 64),
+        ("global", 32, 16, 64, 64), ("merge", 16, 64, 64, 64),
     )
     assert kernels._tile_launches(64, 256, 16) == (
-        ("global", 32, 256, 0), ("global", 16, 256, 0), ("merge", 16, 256, 256, 0),
+        ("global", 32, 16, 256, 0), ("merge", 16, 256, 256, 0),
+    )
+    # five substages above the cap: one launch of three, one of two
+    assert kernels._tile_launches(512, 1024, 16) == (
+        ("global", 256, 64, 1024, 0), ("global", 32, 16, 1024, 0), ("merge", 16, 1024, 1024, 0),
     )
     assert kernels._tile_launches(1024, None) == (("sort", 1024, 2, 1024, 1024),)
     assert kernels._tile_launches(1024, 4096) == (("merge", 1024, 4096, 4096, 0),)
@@ -242,3 +247,97 @@ def test_plain_versions_leave_launch_counts_alone():
     kernels.reset_launch_counts()
     kernels.block_sort(torch.zeros(64), 16)
     assert set(kernels.launch_counts().values()) == {0}
+
+
+# ------------------------------------------ kernel C's fused cross-tile pass ---
+def _tie_keys(dtype: str, shape, seed: int) -> np.ndarray:
+    """Duplicate-heavy keys, with -0.0 beside +0.0 for the float types."""
+    x = make_keys(dtype, shape, seed, duplicates=True)
+    if dtype != "int32":
+        x[np.random.default_rng(seed + 1).random(shape) < 0.3] = np.asarray(-0.0, x.dtype)
+    return x
+
+
+@pytest.mark.parametrize("f", [0, 128])
+@pytest.mark.parametrize("span", range(1, kernels.GLOBAL_SPAN + 1))
+@pytest.mark.parametrize("has_rank", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_global_stages_equal_successive_substages(dtype, has_rank, span, f):
+    """One fused launch of C over ``span`` substages, in plain torch, equals
+    ``plain_global_stage`` at each of them in turn, bit for bit; f = 128 is
+    the parity mask of a tile above the cap (W >= k)."""
+    n, j_lo, k = 256, 4, 64
+    j_hi = j_lo << (span - 1)
+    x = cpu(_tie_keys(dtype, (2, n), seed=span))
+    r = torch.randperm(n, generator=torch.Generator().manual_seed(span), dtype=torch.int32)
+    r = r.expand(2, n).contiguous() if has_rank else None
+    want, want_r, j = x, r, j_hi
+    while j >= j_lo:
+        want, want_r = kernels.plain_global_stage(want, want_r, j, k, f)
+        j //= 2
+    got, got_r = kernels.plain_global_stages(x, r, j_hi, j_lo, k, f)
+    assert_bits_equal(got, want)
+    if has_rank:
+        assert torch.equal(got_r, want_r)
+    if f == 0:  # the wrappers run the same on CPU tensors
+        wrapped = kernels.global_stages_kv(x, r, j_hi, j_lo, k) if has_rank else (
+            kernels.global_stages(x, j_hi, j_lo, k), None)
+        assert_bits_equal(wrapped[0], want)
+        if has_rank:
+            assert torch.equal(wrapped[1], want_r)
+
+
+@pytest.mark.parametrize("rows,n,launches,substages", [
+    (8, 1 << 21, 21, 66),  # model B's tiles of a 10M sort
+    (1, 1 << 24, 32, 105),  # the 10M argsort's row
+    (1, 1 << 25, 36, 120),  # model D's 2 x 10^7-slot slab
+])
+def test_global_spans_group_the_cross_tile_substages(rows, n, launches, substages):
+    """Per stage k of a sort at block_n 1024, the spans cover j = k/2 ..
+    block_n in order, at most GLOBAL_SPAN substages each, in ceil(d / span)
+    launches."""
+    block_n, got, covered = 1024, 0, 0
+    k = 2 * block_n
+    while k <= n:
+        spans = kernels.global_spans(k // 2, block_n)
+        d = (k // 2).bit_length() - block_n.bit_length() + 1
+        assert len(spans) == -(-d // kernels.GLOBAL_SPAN)
+        j = k // 2
+        for j_hi, j_lo in spans:
+            assert j_hi == j and j_lo <= j_hi < j_lo << kernels.GLOBAL_SPAN
+            covered += j_hi.bit_length() - j_lo.bit_length() + 1
+            j = j_lo // 2
+        assert j == block_n // 2
+        got += len(spans)
+        k *= 2
+    assert (got, covered) == (launches, substages)
+
+
+@pytest.mark.parametrize("block_n", [16, 1024])
+@pytest.mark.parametrize("d", [kernels.GLOBAL_SPAN - 1, kernels.GLOBAL_SPAN, kernels.GLOBAL_SPAN + 1])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernel_sort_and_argsort_across_span_boundaries(dtype, d, block_n):
+    """Rows whose last stage has d substages above the tile (one launch of C
+    below, at and one past GLOBAL_SPAN) sort as torch.sort(stable=True)
+    does, through the plain versions on the CPU."""
+    from repro_torch.kernels.bitonic_sort import ops
+
+    n = (block_n << d) - 5  # padded to block_n * 2^d
+    x = cpu(_tie_keys(dtype, (2, n), seed=d))
+    want = torch.sort(x.float(), dim=-1, stable=True)
+    assert torch.equal(ops.kernel_sort(x, block_n=block_n).float(), want.values)
+    assert torch.equal(ops.kernel_argsort(x, block_n=block_n).long(), want.indices)
+
+
+def test_global_stages_reject_spans_the_kernel_cannot_take():
+    x, r = torch.zeros(1024), torch.arange(1024, dtype=torch.int32)
+    span = kernels.GLOBAL_SPAN
+    with pytest.raises(ValueError):
+        kernels.global_stages(x, 2 << span, 2, 1024)  # one substage too many
+    with pytest.raises(ValueError):
+        kernels.global_stages_kv(x, r, 4, 8, 16)  # j_lo above j_hi
+    with pytest.raises(ValueError):
+        kernels.global_stages(x, 64, 16, 64)  # k < 2 * j_hi
+    kernels.reset_launch_counts()
+    kernels.global_stages(x, 1 << span, 2, 1024)  # plain: counts stay at 0
+    assert set(kernels.substage_counts().values()) == {0}

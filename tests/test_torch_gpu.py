@@ -71,19 +71,73 @@ def test_block_kernels_match_plain(cuda, dtype, block_n):
     }
 
 
-@pytest.mark.parametrize("j,k", [(1, 2), (64, 256), (4096, 65536), (32768, 65536)])
+@pytest.mark.parametrize("j,j_lo,k", [
+    (1, 1, 2), (64, 64, 256), (4096, 4096, 65536), (32768, 32768, 65536),  # one substage
+    (2, 1, 4), (64, 16, 256), (32768, 4096, 65536), (4096, 512, 65536),  # spans of 2, 3, 4
+])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_global_stage_kernels_match_plain(cuda, dtype, j, k):
+def test_global_stage_kernels_match_plain(cuda, dtype, j, j_lo, k):
+    # one substage through global_stage(_kv), a span through global_stages(_kv):
+    # one launch each, counted with its substages on the one-substage wrapper
     n = 65536
     x = _keys(dtype, (2, n), seed=j, duplicates=True)
     r = torch.arange(n, dtype=torch.int32).expand(2, n).contiguous()
-    _assert_same_bits(kernels.global_stage(x.to(cuda), j, k), kernels.global_stage(x, j, k))
-    got, got_r = kernels.global_stage_kv(x.to(cuda), r.to(cuda), j, k)
-    want, want_r = kernels.global_stage_kv(x, r, j, k)
+    if j == j_lo:
+        _assert_same_bits(kernels.global_stage(x.to(cuda), j, k), kernels.global_stage(x, j, k))
+        got, got_r = kernels.global_stage_kv(x.to(cuda), r.to(cuda), j, k)
+        want, want_r = kernels.global_stage_kv(x, r, j, k)
+    else:
+        _assert_same_bits(kernels.global_stages(x.to(cuda), j, j_lo, k),
+                          kernels.plain_global_stages(x, None, j, j_lo, k)[0])
+        got, got_r = kernels.global_stages_kv(x.to(cuda), r.to(cuda), j, j_lo, k)
+        want, want_r = kernels.plain_global_stages(x, r, j, j_lo, k)
     _assert_same_bits(got, want)
     assert torch.equal(got_r.cpu(), want_r)
     assert kernels.launch_counts()["global_stage"] == 1
     assert kernels.launch_counts()["global_stage_kv"] == 1
+    span = j.bit_length() - j_lo.bit_length() + 1
+    assert kernels.substage_counts() == {"global_stage": span, "global_stage_kv": span}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_global_stages_kernel_takes_parity_masks_and_refuses_long_spans(cuda, dtype):
+    # f = W: a W-wide tile above the cap; a span of GLOBAL_SPAN + 1 is refused
+    # by the wrapper, and by the kernel's entry point if the wrapper is passed by
+    n, w = 65536, 32768
+    x = _tie_keys(dtype, (2, n), seed=11)
+    r = torch.randperm(n, generator=torch.Generator().manual_seed(11), dtype=torch.int32)
+    r = r.expand(2, n).contiguous()
+    for k in (w // 2, w):
+        got, got_r = kernels._launch_global(x.to(cuda), r.to(cuda), k // 2, k // 16, k, w)
+        want, want_r = kernels.plain_global_stages(x, r, k // 2, k // 16, k, w)
+        _assert_same_bits(got, want)
+        assert torch.equal(got_r.cpu(), want_r)
+    span = kernels.GLOBAL_SPAN
+    with pytest.raises(ValueError):
+        kernels.global_stages(x.to(cuda), 2 << span, 2, n)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        kernels._launch_global(x.to(cuda), None, 2 << span, 2, n, 0)
+
+
+def test_sort_and_argsort_fuse_the_cross_tile_substages(cuda):
+    # the benchmark's shapes: model B's 8 tiles of a 10M sort, the 10M argsort's row
+    x = _keys(torch.float32, (8, 1 << 21), seed=12)
+    assert torch.equal(ops.kernel_sort(x.to(cuda)).cpu(), torch.sort(x, dim=-1).values)
+    assert kernels.launch_counts() == {
+        "block_sort": 1, "block_merge": 11, "global_stage": 21,
+        "block_sort_kv": 0, "block_merge_kv": 0, "global_stage_kv": 0,
+    }
+    assert kernels.substage_counts() == {"global_stage": 66, "global_stage_kv": 0}
+    kernels.reset_launch_counts()
+    keys = torch.randint(0, 1000, (1 << 24,), generator=torch.Generator().manual_seed(13),
+                         dtype=torch.int32)
+    idx = ops.kernel_argsort(keys.to(cuda))
+    assert torch.equal(idx.cpu().long(), torch.sort(keys, stable=True).indices)
+    assert kernels.launch_counts() == {
+        "block_sort": 0, "block_merge": 0, "global_stage": 0,
+        "block_sort_kv": 1, "block_merge_kv": 14, "global_stage_kv": 32,
+    }
+    assert kernels.substage_counts() == {"global_stage": 0, "global_stage_kv": 105}
 
 
 def _tie_keys(dtype, shape, seed):

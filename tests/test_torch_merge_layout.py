@@ -365,7 +365,7 @@ def test_emulated_capped_launches_compose_the_wide_tile(cap, width, n, has_rank)
     def run(steps, y, ry):
         for kind, *args in steps:
             if kind == "global":
-                y, ry = kernels.plain_global_stage(y, ry, *args)
+                y, ry = kernels.plain_global_stages(y, ry, *args)
             else:
                 y, ry = emulate_tile(y, ry, *args)
         return y, ry

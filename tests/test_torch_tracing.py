@@ -107,8 +107,11 @@ def test_device_spans_on_the_cpu_record_no_event(device):
 
 def test_threads_keep_their_own_stacks_and_call_ids():
     seen = {}
+    # both threads alive at once: a thread that ended may hand its ident on
+    both_started = threading.Barrier(2, timeout=60)
 
     def work(tag):
+        both_started.wait()
         for _ in range(3):
             with tracing.span(f"repro_torch.test.{tag}"):
                 with tracing.span(f"repro_torch.test.{tag}.child"):
