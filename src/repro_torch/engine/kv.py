@@ -42,6 +42,7 @@ from repro_torch.exchange import (
     slab_geometry,
     slab_valid,
 )
+from repro_torch.tracing import span
 
 __all__ = ["sort_kv", "sort_pairs", "argsort", "topk", "cluster_sort_kv"]
 
@@ -77,15 +78,16 @@ def _order_keys(
     (int64 from the library, int32 from the kernels): a caller that gathers
     takes them so, one that returns them casts to int32.
     """
-    k = keys if ascending else _rev_key(keys)
-    if impl == "kernel":
-        from repro_torch.kernels.bitonic_sort.ops import DEFAULT_BLOCK_N, kernel_argsort
+    with span("repro_torch.kv.order", device=keys):
+        k = keys if ascending else _rev_key(keys)
+        if impl == "kernel":
+            from repro_torch.kernels.bitonic_sort.ops import DEFAULT_BLOCK_N, kernel_argsort
 
-        return kernel_argsort(k, block_n=block_n or DEFAULT_BLOCK_N)
-    if impl != "xla":
-        raise ValueError(f"argsort impl must be 'xla' or 'kernel', got {impl!r}")
-    # floats on their sort image: NaN of either sign last on every device
-    return torch.sort(sort_image(k), dim=-1, stable=True).indices
+            return kernel_argsort(k, block_n=block_n or DEFAULT_BLOCK_N)
+        if impl != "xla":
+            raise ValueError(f"argsort impl must be 'xla' or 'kernel', got {impl!r}")
+        # floats on their sort image: NaN of either sign last on every device
+        return torch.sort(sort_image(k), dim=-1, stable=True).indices
 
 
 def _gather_last(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -308,6 +310,8 @@ def topk(
     >>> vals.tolist(), idx.tolist()
     ([9.0, 4.0], [1, 2])
     """
-    x = as_tensor(x, device)
-    top_idx = _order_keys(x, ascending=not largest, impl=impl, block_n=block_n)[..., :k].to(torch.int32)
-    return _gather_last(x, top_idx), top_idx
+    with span("repro_torch.topk"):
+        x = as_tensor(x, device)
+        top_idx = _order_keys(x, ascending=not largest, impl=impl, block_n=block_n)[..., :k].to(torch.int32)
+        with span("repro_torch.kv.gather", device=x):
+            return _gather_last(x, top_idx), top_idx

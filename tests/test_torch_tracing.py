@@ -11,7 +11,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import repro_torch
-from repro_torch import tracing
+from repro_torch import engine, tracing
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 
@@ -148,6 +148,57 @@ def test_sort_front_door_spans():
     assert [r.parent for r in recs] == [None, 0, 0, 0, 0]
     events = {e.name for e in prof.events()}
     assert {r.name for r in recs} <= events
+
+
+def _tied_logits():
+    """(4, 3000) logits computed in bfloat16 and held as float32, as a bf16
+    model hands them to its sampler: equal values straddle the 50th place."""
+    g = torch.Generator().manual_seed(2 ** 31 + 3)
+    return (torch.randn(4, 3000, generator=g) * 3.0).to(torch.bfloat16).float()
+
+
+def test_topk_spans_nest_under_one_root():
+    x = _tied_logits()
+    with _cpu_profile() as prof:
+        with record_function("outside"):
+            engine.topk(x, 50, impl="kernel")
+    recs = tracing.records()
+    assert [r.name for r in recs] == ["repro_torch.topk", "repro_torch.kv.order",
+                                      "repro_torch.kv.gather"]
+    assert [r.parent for r in recs] == [None, 0, 0]
+    assert len({r.call for r in recs}) == 1
+    assert recs[1].end_ns <= recs[2].start_ns
+    assert {r.name for r in recs} <= {e.name for e in prof.events()}
+
+
+def test_argsort_records_the_kv_order_span():
+    keys = torch.randint(0, 50, (3000,), dtype=torch.int32)
+    with _cpu_profile():
+        out = engine.argsort(keys, impl="kernel")
+    assert torch.equal(out, torch.argsort(keys, stable=True).to(torch.int32))
+    assert [(r.name, r.parent) for r in tracing.records()] == [("repro_torch.kv.order", None)]
+
+
+def test_kv_spans_record_nothing_without_a_profiler():
+    before = tracing.records()
+    engine.topk(_tied_logits(), 50, impl="kernel")
+    engine.argsort(torch.randint(0, 50, (3000,), dtype=torch.int32), impl="kernel")
+    assert tracing.records() == before
+
+
+def test_topk_answers_alike_with_spans_on_and_off():
+    x = _tied_logits()
+    top = torch.sort(x, dim=-1, descending=True).values[:, :51]
+    assert (top[:, 49] == top[:, 50]).any()  # ties across the 50th place
+    answers = []
+    for impl in ("kernel", "xla"):
+        answers.append(engine.topk(x, 50, impl=impl))
+        with _cpu_profile():
+            answers.append(engine.topk(x, 50, impl=impl))
+    vals, idx = answers[0]
+    assert idx.dtype == torch.int32
+    for v, i in answers[1:]:
+        assert torch.equal(v.view(torch.int32), vals.view(torch.int32)) and torch.equal(i, idx)
 
 
 def test_span_names_in_the_port():
