@@ -13,9 +13,17 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
            float32, int32, float16 and bfloat16: compared bit for bit (B and
            B-kv at stages k = 2 * block_n, 4 * block_n and 2^21; C and C-kv
            at one substage and at a fused span of GLOBAL_SPAN substages)
+  merge_runs  kernel M, one round of model B's merge tree, on 8 x 2^21 keys
+           (rows of one pair at width 2^20, then the flat 2^24 at widths
+           2^21, 2^22 and 2^23, each run sorted on its sort image), for the
+           four key dtypes: bit for bit against its plain version and
+           against rank_merge_pairs (the rounds it replaces); float32 ms per
+           launch beside the 0.040 ms byte bound, its share, the plain
+           version's ms and rank_merge_pairs' ms
   sort     repro_torch.sort of 10,000,000 float32 keys (model B, 8 tiles,
            local_impl="kernel"), both directions, against the plain bitonic
-           network (bits) and torch.sort (values)
+           network (bits) and torch.sort (values); kernel M merges all three
+           rounds of the tree
   argsort  argsort / sort_kv of 10,000,000 duplicate-heavy int32 keys
            against torch.sort(stable=True), with an (n, 4) float32 payload
   topk     top-50 of (8, 151936) float32 logits with ties put in on purpose,
@@ -426,6 +434,41 @@ def phase_parity(kernels, device) -> dict:
     return {"rows": rows, "n": n, "block_n": [1024, kernels.MAX_BLOCK_N, 2 * kernels.MAX_BLOCK_N],
             "merge_k": ["2*block_n", "4*block_n", n], "cases": cases,
             "bitwise_equal": True, "max_abs_err": worst}
+
+
+def phase_merge_runs(kernels, device, rows: int = 8, n: int = 1 << 21) -> dict:
+    """Kernel M against its plain version and the rank merge on the same
+    card tensors, and its time a launch at model B's widths."""
+    from repro_torch.core.merge import gather_bits, rank_merge_pairs, sort_image
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    cases, times = 0, {}
+    for dtype in (torch.float32, torch.int32, torch.float16, torch.bfloat16):
+        keys = make_keys(dtype, (rows * n,), gen, device)
+        for shape, width in (((rows, n), n // 2), ((rows * n,), n), ((rows * n,), 2 * n),
+                             ((rows * n,), 4 * n)):
+            runs = keys.view(-1, width)
+            order = torch.sort(sort_image(runs), dim=-1, stable=True).indices
+            x = gather_bits(runs, order).view(shape)
+            got = kernels.merge_runs(x, width)
+            rank = rank_merge_pairs(x.view(*shape[:-1], -1, 2, width)).view(shape)
+            torch.cuda.synchronize()
+            what = f"merge_runs {dtype} shape={list(shape)} width={width}"
+            check(same_bits(got, kernels.plain_merge_runs(x, width)), f"{what}: differs from the plain version")
+            check(same_bits(got, rank), f"{what}: differs from rank_merge_pairs")
+            cases += 1
+            if dtype == torch.float32:
+                ms = time_ms(lambda: kernels.merge_runs(x, width), reps=20)
+                bound = bytes_bound_ms(rows * n, 4, False)
+                times[width] = {
+                    "shape": list(shape), "ms": ms, "bound_ms": bound, "share": bound / ms,
+                    "plain_ms": time_ms(lambda: kernels.plain_merge_runs(x, width), reps=3, warmup=1),
+                    "rank_merge_pairs_ms": time_ms(
+                        lambda: rank_merge_pairs(x.view(*shape[:-1], -1, 2, width)), reps=5),
+                    "reps": 20}
+    return {"rows": rows, "n": n, "tile": kernels.MERGE_TILE, "cases": cases,
+            "bitwise_equal_plain": True, "bitwise_equal_rank_merge_pairs": True,
+            "float32_times": times}
 
 
 def expected_launches(n: int, block_n: int, kv: bool) -> dict:
@@ -2595,8 +2638,10 @@ def main() -> None:
     # -- kernel parity at real widths (these launches are not the main path's)
     parity = phase_parity(kernels, device)
     emit({"phase": "parity", **parity})
+    merge_runs = phase_merge_runs(kernels, device)
+    emit({"phase": "merge_runs", **merge_runs})
 
-    launches = {k: 0 for k in REPLACES}
+    launches = {k: 0 for k in kernels.launch_counts()}
 
     def add(counts):
         for k, v in counts.items():
@@ -2609,7 +2654,9 @@ def main() -> None:
     got, counts = counted(kernels, lambda: repro_torch.sort(x, **sort_kw))
     add(counts)
     tile = (1 << (SORT_N - 1).bit_length()) // 8
-    check(counts == expected_launches(tile, 1024, kv=False), f"sort launches {counts}")
+    check(counts == {**expected_launches(tile, 1024, kv=False), "merge_runs": 3}, f"sort launches {counts}")
+    check(kernels.merge_round_counts() == {"merge_runs": 3, "rank_merge_pairs": 0},
+          f"sort: merge rounds {kernels.merge_round_counts()}")
     plain = repro_torch.sort(x, strategy="shared", local_impl="bitonic", n_threads=8)
     check(same_bits(got, plain), "sort: kernel path differs from the plain bitonic path")
     check(torch.equal(got, torch.sort(x).values), "sort: values differ from torch.sort")
@@ -2673,7 +2720,7 @@ def main() -> None:
         from repro_torch.exchange import AxisGroup
 
         group = AxisGroup()
-        mesh_counts = {k: 0 for k in REPLACES}
+        mesh_counts = {k: 0 for k in kernels.launch_counts()}
 
         def add_mesh(counts):
             add(counts)
@@ -2822,6 +2869,16 @@ def main() -> None:
             "reps": 20,
             "plain_reps": 3,
         })
+    widest = merge_runs["float32_times"][1 << 23]
+    entries.append({
+        "name": "merge_runs", "route": "cuda", "source": SOURCE,
+        "replaces": "none: the reference merges in jnp (src/repro/core/merge.py rank_merge_pairs)",
+        "launches": launches["merge_runs"], "max_abs_err": 0.0, "ms": widest["ms"],
+        "plain_ms": widest["plain_ms"], "bound_ms": widest["bound_ms"], "bound_by": "bytes",
+        "share": widest["share"], "library_ms": None,
+        "rank_merge_pairs_ms": widest["rank_merge_pairs_ms"], "shape": widest["shape"],
+        "width": 1 << 23, "dtype": "float32", "reps": 20, "plain_reps": 3,
+    })
     # the top-k row shape, for the kv kernels' second main-path use
     tk_keys = make_keys(torch.float32, (8, 1 << 18), gen, device)
     tk_r = torch.arange(1 << 18, dtype=torch.int32, device=device).expand(8, 1 << 18).contiguous()

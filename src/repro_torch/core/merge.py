@@ -15,7 +15,12 @@ and the positions always form a permutation.
 
 ``merge_adjacent`` is one round of the paper's bottom-up merge: runs of width
 ``w`` become runs of width ``2w``.  ``values`` is a dict of tensors shaped
-like the keys.
+like the keys.  On the card, a keys-only round of float32, int32, float16 or
+bfloat16 whose merged runs (``2w``) fill whole tiles of kernel M
+(``kernels/bitonic_sort``: ``merge_runs``, ``MERGE_TILE``) is one launch of
+that kernel, whose merge path takes the same order and tie rule and so
+gives the same bits on sorted runs; every other round is ``rank_merge_pairs``,
+counted on the card as ``merge_runs.plain_cuda_rounds``.
 """
 from __future__ import annotations
 
@@ -97,6 +102,14 @@ def merge_sorted_pair(a, b, va=None, vb=None):
     return rank_merge_pairs(pairs, values)
 
 
+def _kernel_m_takes(dtype: torch.dtype, width: int, values) -> bool:
+    """Whether a round on the card is kernel M's: keys only, of a dtype it
+    takes, the merged runs whole tiles of it."""
+    from repro_torch.kernels.bitonic_sort.bitonic_sort import KEY_DTYPES, MERGE_TILE
+
+    return values is None and dtype in KEY_DTYPES and (2 * width) % MERGE_TILE == 0
+
+
 def merge_adjacent(x: torch.Tensor, width: int, values: dict | None = None):
     """One bottom-up merge round: sorted runs of ``width`` -> runs of ``2*width``.
 
@@ -109,6 +122,13 @@ def merge_adjacent(x: torch.Tensor, width: int, values: dict | None = None):
     *lead, n = x.shape
     if n % (2 * width):
         raise ValueError(f"length {n} is not a multiple of 2 * width = {2 * width}")
+    if x.is_cuda:
+        from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
+
+        if _kernel_m_takes(x.dtype, width, values):
+            x = x.contiguous()
+            return kernels.merge_runs(x.clone() if x.data_ptr() % 16 else x, width)
+        kernels.merge_runs.plain_cuda_rounds += 1
     pairs = x.reshape(*lead, n // (2 * width), 2, width)
     if values is None:
         return rank_merge_pairs(pairs).reshape(*lead, n)

@@ -13,6 +13,9 @@ loads it with ``ctypes``, and wraps each kernel:
         global_stages  / global_stages_kv  the cross-tile substages j_hi .. j_lo
                                            of one stage in one pass (at most
                                            GLOBAL_SPAN of them)
+  M     merge_runs                         one round of model B's merge tree:
+                                           adjacent sorted runs merged stably
+                                           on ``core.merge.sort_image``
 
 A and B are one CUDA kernel body (``tile_network``) that holds a tile in
 registers and runs stages k_first .. k_last of it (``_tile_geometry``).  C
@@ -20,10 +23,14 @@ holds groups of up to 2**GLOBAL_SPAN keys a thread in registers: a stage's
 substages at distances >= block_n take ``global_spans`` launches, a pass over
 memory each, instead of one a substage.  Both C wrappers count their launches
 on ``global_stage(_kv).launches`` and the substages those ran on
-``.substages`` (``substage_counts``).
+``.substages`` (``substage_counts``).  M is a merge path over output tiles of
+``MERGE_THREADS * MERGE_ELEMS`` keys, ``MERGE_PASSES`` of them (``MERGE_TILE``
+keys) a block; ``core.merge.merge_adjacent`` routes the rounds it takes to it
+and counts the card's other rounds on ``merge_runs.plain_cuda_rounds``
+(``merge_round_counts``).
 
-Every wrapper takes a contiguous tensor whose last axis (length n, a power of
-two) is sorted row by row; the leading dims are rows of the kernel grid.  The
+Every network wrapper takes a contiguous tensor whose last axis (length n, a
+power of two) is sorted row by row; the leading dims are rows of the kernel grid.  The
 ``*_kv`` twins carry int32 ranks with the (key, rank) comparator, so the rank
 output is the stable permutation.
 
@@ -34,9 +41,10 @@ arithmetic step by step.  Keys may be float32, int32, float16 or bfloat16.
 One launch of A or B holds tiles of at most ``MAX_BLOCK_N`` keys (one CUDA
 block's shared memory); a wider power-of-two ``block_n`` is composed from
 launches at the cap (``_tile_launches``), as the TPU's VMEM took it whole.
-NaN keys give unspecified output, as in the reference.  A and B bulk-copy
-their inputs, so on the card these must start on a 16-byte boundary
-(``ValueError`` otherwise); ``ops.py`` copies a caller's view that does not.
+NaN keys give unspecified output from the networks, as in the reference.  A,
+B and M copy their inputs by 16-byte words, so on the card these must start on
+a 16-byte boundary (``ValueError`` otherwise); ``ops.py`` and
+``merge_adjacent`` copy a caller's view that does not.
 """
 from __future__ import annotations
 
@@ -50,6 +58,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.merge import sort_image
 
 __all__ = [
     "MAX_BLOCK_N",
@@ -72,6 +82,11 @@ __all__ = [
     "launch_counts",
     "substage_counts",
     "reset_launch_counts",
+    "KEY_DTYPES",
+    "MERGE_TILE",
+    "merge_runs",
+    "plain_merge_runs",
+    "merge_round_counts",
 ]
 
 # f32 keys + int32 ranks at 16384 is 128 KiB of the 227 KiB a block may use
@@ -83,6 +98,13 @@ _TILE_MIN_THREADS = 128  # narrower tiles are packed several to a block
 _TILE_BARRIER_BYTES = 8  # the tile kernel's mbarrier, after its slot
 
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.float16: 2, torch.bfloat16: 3}
+KEY_DTYPES = tuple(_DTYPE_CODE)
+# kernel M's block (csrc: kMerge*): MERGE_PASSES tiles of MERGE_THREADS threads
+# that merge MERGE_ELEMS output keys each
+MERGE_THREADS, MERGE_ELEMS, MERGE_PASSES = 256, 16, 2
+MERGE_TILE = MERGE_THREADS * MERGE_ELEMS * MERGE_PASSES  # output keys a block of M writes
+_SPLIT_PROBES = 32  # M's tile-edge search: one probe a lane of a warp
+_BITS = {2: torch.int16, 4: torch.int32}  # the plain M moves keys as integers of their size
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "bitonic_sort.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
@@ -128,7 +150,8 @@ def _lib() -> ctypes.CDLL:
         i32, ptr, ptr, ptr, ptr, i64, i64, i32, i64, i64, i64, i32, i32, i32, i32, ptr,
     ]
     lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr]
-    for fn in (lib.bitonic_tile_network, lib.bitonic_global_stage):
+    lib.bitonic_merge_runs.argtypes = [i32, ptr, ptr, i64, i64, i32, i32, i32, ptr]
+    for fn in (lib.bitonic_tile_network, lib.bitonic_global_stage, lib.bitonic_merge_runs):
         fn.restype = i32
     lib.bitonic_error_string.argtypes = [i32]
     lib.bitonic_error_string.restype = ctypes.c_char_p
@@ -202,13 +225,13 @@ def _tile_geometry(block_n: int, itemsize: int, has_rank: bool, sort: bool) -> T
 
 
 def _check_aligned(*tensors) -> None:
-    """Kernels A and B bulk-copy their inputs: each must start on 16 bytes
-    (None, for absent ranks, is skipped)."""
+    """Kernels A, B and M copy their inputs by 16-byte words: each must start
+    on 16 bytes (None, for absent ranks, is skipped)."""
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(
-                "block_sort and block_merge need inputs that start on a 16-byte boundary "
-                f"(data_ptr % 16 = {t.data_ptr() % 16}); pass a fresh contiguous tensor"
+                "block_sort, block_merge and merge_runs need inputs that start on a 16-byte "
+                f"boundary (data_ptr % 16 = {t.data_ptr() % 16}); pass a fresh contiguous tensor"
             )
 
 
@@ -296,6 +319,66 @@ def plain_global_stages(x, r, j_hi: int, j_lo: int, k: int, f: int = 0):
         x, r = plain_global_stage(x, r, j, k, f)
         j //= 2
     return x, r
+
+
+def _at(run: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``run[p, index[p, ...]]`` for an integer (pairs, w) ``run``, the index
+    clamped into the run (where the kernel reads nothing, the result is
+    masked)."""
+    flat = index.reshape(index.shape[0], -1).clamp(0, run.shape[-1] - 1)
+    return torch.gather(run, -1, flat).view(index.shape)
+
+
+def _edge_splits(ka, kb, d):
+    """Kernel M's search at the tile edges ``d`` (pairs, edges): how many of
+    run a's keys are among the first d of the merge, the first m at which
+    a[m] > b[d - 1 - m] on the image, found as one warp finds it
+    (``diagonal_split`` in the source): each round probes m_k = lo + (k + 1) *
+    step - 1 for k < 32 and keeps the range after the c probes that hold."""
+    w = ka.shape[-1]
+    lo, hi = (d - w).clamp(min=0), d.clamp(max=w)
+    probe = torch.arange(1, _SPLIT_PROBES + 1, device=d.device)
+    while bool((active := hi > lo).any()):
+        step = (hi - lo + _SPLIT_PROBES - 1) // _SPLIT_PROBES
+        m = lo[..., None] + probe * step[..., None] - 1
+        holds = (m < hi[..., None]) & (_at(ka, m) <= _at(kb, d[..., None] - 1 - m))
+        c = holds.sum(-1)
+        lo, hi = (torch.where(active, lo + c * step, lo),
+                  torch.where(active, torch.minimum(hi, lo + (c + 1) * step - 1), hi))
+    return lo
+
+
+def plain_merge_runs(x, width: int, threads: int = MERGE_THREADS, elems: int = MERGE_ELEMS):
+    """Kernel M in plain torch, on any device: the same tile cut, diagonal
+    searches, tie rule and merge, step by step.  Each tile of ``threads *
+    elems`` output keys of a pair takes the slices of runs a and b between
+    the splits at its edges (clamped into the runs as the kernel clamps them);
+    thread t finds its split at tile diagonal t * elems by binary search in
+    those slices, then takes ``elems`` keys in order, run a's on equal images."""
+    tile = threads * elems
+    shape, w = x.shape, width
+    keys = x.view(_BITS[x.element_size()]).reshape(-1, 2, w)
+    img = sort_image(x).reshape(-1, 2, w)
+    ka, kb, ba, bb = img[:, 0], img[:, 1], keys[:, 0], keys[:, 1]
+    d0 = torch.arange(0, 2 * w + 1, tile, device=x.device).expand(ka.shape[0], -1)
+    edge = _edge_splits(ka, kb, d0)
+    i0, d0 = edge[:, :-1, None], d0[:, :-1, None]  # (pairs, tiles, 1)
+    i1 = edge[:, 1:, None].clamp(torch.maximum(i0, d0 + tile - w), torch.clamp(i0 + tile, max=w))
+    j0, la = d0 - i0, i1 - i0
+    lb = tile - la
+    dt = torch.arange(threads, device=x.device) * elems  # (threads,)
+    lo, hi = (dt - lb).clamp(min=0), torch.minimum(dt, la)
+    while bool((active := lo < hi).any()):
+        mid = (lo + hi) // 2
+        holds = _at(ka, i0 + mid) <= _at(kb, j0 + dt - 1 - mid)
+        lo, hi = torch.where(active & holds, mid + 1, lo), torch.where(active & ~holds, mid, hi)
+    ia, ib = lo, dt - lo
+    out = []
+    for _ in range(elems):
+        take_a = (ib >= lb) | ((ia < la) & (_at(ka, i0 + ia) <= _at(kb, j0 + ib)))
+        out.append(torch.where(take_a, _at(ba, i0 + ia), _at(bb, j0 + ib)))
+        ia, ib = ia + take_a, ib + ~take_a
+    return torch.stack(out, dim=-1).reshape(shape).view(x.dtype)
 
 
 def global_spans(j_hi: int, j_lo: int) -> tuple:
@@ -459,7 +542,48 @@ def global_stages_kv(x: torch.Tensor, r: torch.Tensor, j_hi: int, j_lo: int, k: 
     return _launch_global(x, r, j_hi, j_lo, k, 0)
 
 
-KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv, global_stage_kv)
+def _check_merge(x: torch.Tensor, width: int) -> None:
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported key dtype {x.dtype}; expected one of {list(_DTYPE_CODE)}")
+    if x.dim() < 1 or not x.is_contiguous():
+        raise ValueError(f"keys must be contiguous with at least one axis, got shape {tuple(x.shape)}")
+    n = x.shape[-1]
+    if width < 1 or n % (2 * width) or (2 * width) % MERGE_TILE:
+        raise ValueError(f"merge_runs needs 2 * width a multiple of MERGE_TILE = {MERGE_TILE} "
+                         f"that divides the last axis, got width={width}, n={n}")
+
+
+def merge_runs(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Kernel M: every pair of adjacent sorted runs of ``width`` keys along
+    the last axis merged into one run, in ``core.merge.sort_image`` order,
+    run a's key first on equal images; ``2 * width`` a multiple of
+    ``MERGE_TILE`` that divides the last axis.  On runs sorted on that image
+    the output is ``core.merge.rank_merge_pairs``', bit for bit (the
+    reference's jnp merge; M replaces no Pallas kernel).
+
+    >>> x = torch.cat([torch.arange(0, MERGE_TILE, 2), torch.arange(1, MERGE_TILE, 2)]).int()
+    >>> torch.equal(merge_runs(x, MERGE_TILE // 2), torch.arange(MERGE_TILE, dtype=torch.int32))
+    True
+    """
+    _check_merge(x, width)
+    if not _on_cuda(x):
+        return plain_merge_runs(x, width)
+    _check_aligned(x)
+    out = torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        # the entry point checks the geometry against the one it was built for
+        err = lib.bitonic_merge_runs(_DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), x.numel(),
+                                     width, MERGE_THREADS, MERGE_ELEMS, MERGE_PASSES, stream)
+    if err:
+        raise RuntimeError(f"bitonic_merge_runs failed: {lib.bitonic_error_string(err).decode()}")
+    merge_runs.launches += 1
+    return out
+
+
+KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv, global_stage_kv,
+           merge_runs)
 
 
 def launch_counts() -> dict:
@@ -473,10 +597,18 @@ def substage_counts() -> dict:
     return {fn.__name__: fn.substages for fn in (global_stage, global_stage_kv)}
 
 
+def merge_round_counts() -> dict:
+    """Merge rounds on the card since the last reset: kernel M's launches and
+    the rounds ``core.merge.merge_adjacent`` left to ``rank_merge_pairs``
+    (narrower than a tile, with values, or of another dtype)."""
+    return {"merge_runs": merge_runs.launches, "rank_merge_pairs": merge_runs.plain_cuda_rounds}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     global_stage.substages = global_stage_kv.substages = 0
+    merge_runs.plain_cuda_rounds = 0
 
 
 reset_launch_counts()

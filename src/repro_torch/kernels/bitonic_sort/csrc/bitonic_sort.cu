@@ -80,6 +80,34 @@
 //   Lanes own neighbouring groups, so every load and store of a warp is one
 //   coalesced line.  Grid-stride loop, out of place; one substage (j_hi = j_lo)
 //   is the reference's global_stage.
+//
+// M (merge_runs_kernel): one round of model B's merge tree, every pair of
+//   adjacent sorted runs of `width` keys merged into one run of 2*width.  It
+//   replaces no Pallas kernel: the reference merges in jnp (src/repro/core/
+//   merge.py, rank_merge_pairs: two searchsorted, a scatter and a gather),
+//   and so did the port, in about 22 torch ops a round of which several were
+//   random-access passes over 8-byte positions.  Its order is that of
+//   core/merge.py:sort_image, computed in registers (-0.0 == +0.0, every NaN
+//   equal to every other and above +inf, fp16/bf16 through float32), and on
+//   equal images run a's key goes first, the rank merge's side='left' /
+//   side='right' rule: so on runs sorted on that image its output is the rank
+//   merge's, bit for bit.  Keys move as raw bits.
+//   Bound: a round reads every key once and writes it once, 2*n*sizeof(key)
+//   bytes, 0.040 ms for 2^24 float32 keys at 3.35 TB/s; the comparisons are a
+//   few integer ops a key.  Design (merge path): the output of a pair is cut
+//   into tiles of THREADS * E keys, PASSES consecutive tiles a block.  One
+//   warp for each tile edge finds where that output position splits the runs,
+//   by a 32-way search along the diagonal in device memory (5 rounds of two
+//   loads a lane at 2^23, not 23 dependent rounds), all edges of the block at
+//   once, so the search's latency is paid once for PASSES tiles.  For each
+//   tile the block copies its slices of a and b into shared memory as aligned
+//   16-byte words, coalesced; each thread finds its own split there by binary
+//   search, merges its E keys in registers (one shared load a key, no
+//   divergent branch) and stores them as 16-byte vectors.  So device memory
+//   sees one read and one write of each key, plus the searches.
+//   The splits are clamped so that every slice stays inside its run whatever
+//   the keys: runs that are not sorted (NaN out of the networks) give
+//   unspecified output, never an access out of bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -91,6 +119,7 @@
 #include <mutex>
 #include <set>
 #include <tuple>
+#include <type_traits>
 #include <utility>
 
 namespace {
@@ -587,6 +616,137 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// ---------------------------------------------------------------- kernel M ---
+// core/merge.py:sort_image of a key, as an int32: floats widened to float32,
+// -0.0 as +0.0, sign-magnitude turned into two's-complement order, NaN of
+// either sign above +inf.
+template <typename T>
+__device__ __forceinline__ int32_t merge_image(typename KeyBits<T>::U u) {
+  if constexpr (std::is_same_v<T, int32_t>) {
+    return static_cast<int32_t>(u);
+  } else {
+    const float f = KeyBits<T>::ord(u);
+    if (f != f) return INT32_MAX;
+    if (f == 0.0f) return 0;
+    const int32_t i = __float_as_int(f);
+    return i < 0 ? i ^ INT32_MAX : i;
+  }
+}
+
+// The split of diagonal d of runs a and b (w keys each): how many of a's keys
+// are among the first d keys of the merge, the first m in [max(0, d - w),
+// min(d, w)] at which a[m] > b[d - 1 - m] on the image (a's key goes first on
+// ties).  One warp: each round the 32 lanes probe m_k = lo + (k + 1) * step - 1,
+// and the count c of true probes (a prefix, on sorted runs) leaves
+// [lo + c * step, min(hi, lo + (c + 1) * step - 1)].  Whatever the keys, the
+// range only narrows inside [lo, hi].
+template <typename T>
+__device__ __forceinline__ int64_t diagonal_split(const typename KeyBits<T>::U* a,
+                                                  const typename KeyBits<T>::U* b, int64_t w,
+                                                  int64_t d, int lane) {
+  int64_t lo = d > w ? d - w : 0, hi = d < w ? d : w;
+  while (hi > lo) {
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t m = lo + (lane + 1) * step - 1;
+    const bool p = m < hi && merge_image<T>(a[m]) <= merge_image<T>(b[d - 1 - m]);
+    const int64_t c = __popc(__ballot_sync(0xffffffffu, p));
+    const int64_t top = lo + (c + 1) * step - 1;
+    lo += c * step;
+    hi = top < hi ? top : hi;
+  }
+  return lo;
+}
+
+// Kernel M: block g merges PASSES consecutive tiles of TILE output keys of
+// one pair (see the top of the file), tile by tile; warp w finds the split at
+// the w-th tile edge, all PASSES + 1 of them at once.  Shared memory holds a
+// tile's two slices as 16-byte words from the word holding each slice's first
+// key: at most TILE / V + 3 words, and one more for the key one past b's slice
+// that the merge reads.
+template <typename T, int THREADS, int E, int PASSES>
+__global__ void __launch_bounds__(THREADS)
+    merge_runs_kernel(const typename KeyBits<T>::U* __restrict__ x,
+                      typename KeyBits<T>::U* __restrict__ out, int64_t width,
+                      int64_t tiles_per_pair) {
+  using U = typename KeyBits<T>::U;
+  constexpr int TILE = THREADS * E;
+  constexpr int V = 16 / int(sizeof(U));  // keys in a 16-byte word
+  static_assert(TILE % V == 0 && (E * int(sizeof(U))) % 16 == 0, "whole 16-byte words");
+  static_assert(PASSES < THREADS / 32, "a warp for each tile edge");
+  __shared__ uint4 words[TILE / V + 4];
+  __shared__ int64_t edge[PASSES + 1];
+  const int tid = threadIdx.x;
+  const int64_t first = int64_t{blockIdx.x} * PASSES;  // the block's first tile
+  const int64_t pair = first / tiles_per_pair;
+  const int64_t d_first = (first - pair * tiles_per_pair) * int64_t{TILE};
+  const U* a = x + pair * 2 * width;
+  const U* b = a + width;
+  if ((tid >> 5) <= PASSES) {
+    const int64_t s = diagonal_split<T>(a, b, width, d_first + (tid >> 5) * int64_t{TILE}, tid & 31);
+    if ((tid & 31) == 0) edge[tid >> 5] = s;
+  }
+  for (int pass = 0; pass < PASSES; ++pass) {
+    __syncthreads();  // the edges are found; the last pass is done with the slices
+    // the tile takes a[i0, i1) and b[j0, j1); i1 clamped so that both slices
+    // lie in their runs (a no-op on sorted runs)
+    const int64_t d0 = d_first + pass * int64_t{TILE};
+    const int64_t i0 = edge[pass];
+    int64_t i1 = edge[pass + 1];
+    const int64_t i1_lo = i0 > d0 + TILE - width ? i0 : d0 + TILE - width;
+    const int64_t i1_hi = i0 + TILE < width ? i0 + TILE : width;
+    i1 = i1 < i1_lo ? i1_lo : (i1 > i1_hi ? i1_hi : i1);
+    const int64_t j0 = d0 - i0, j1 = d0 + TILE - i1;
+    const int64_t a_first = i0 & ~int64_t{V - 1}, b_first = j0 & ~int64_t{V - 1};
+    const int a_words = int((i1 - a_first + V - 1) / V);
+    const int b_words = int((j1 - b_first + V - 1) / V);
+    const uint4* ga = reinterpret_cast<const uint4*>(a + a_first);
+    const uint4* gb = reinterpret_cast<const uint4*>(b + b_first);
+    for (int i = tid; i < a_words + b_words; i += THREADS) {
+      words[i] = i < a_words ? ga[i] : gb[i - a_words];
+    }
+    __syncthreads();
+    const U* sa = reinterpret_cast<const U*>(words) + (i0 - a_first);
+    const U* sb = reinterpret_cast<const U*>(words) + a_words * V + (j0 - b_first);
+    const int la = int(i1 - i0), lb = int(j1 - j0);
+    // this thread's split of the slices at diagonal dt
+    const int dt = tid * E;
+    int lo = dt - lb > 0 ? dt - lb : 0, hi = dt < la ? dt : la;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (merge_image<T>(sa[mid]) <= merge_image<T>(sb[dt - 1 - mid])) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    // E keys in order; the slices hold TILE - dt >= E keys past the split, so
+    // one of them always has a key left
+    int ia = lo, ib = dt - lo;
+    U ka = sa[ia], kb = sb[ib];
+    int32_t ma = merge_image<T>(ka), mb = merge_image<T>(kb);
+    U k[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool take_a = ib >= lb || (ia < la && ma <= mb);
+      k[e] = take_a ? ka : kb;
+      ia += take_a;
+      ib += !take_a;
+      const U next = *(take_a ? sa + ia : sb + ib);
+      const int32_t mn = merge_image<T>(next);
+      ka = take_a ? next : ka;
+      ma = take_a ? mn : ma;
+      kb = take_a ? kb : next;
+      mb = take_a ? mb : mn;
+    }
+    uint4* dst = reinterpret_cast<uint4*>(out + pair * 2 * width + d0 + dt);
+#pragma unroll
+    for (int q = 0; q < E * int(sizeof(U)) / 16; ++q) {
+      dst[q] = make_uint4(key_word(k, 4 * q), key_word(k, 4 * q + 1), key_word(k, 4 * q + 2),
+                          key_word(k, 4 * q + 3));
+    }
+  }
+}
+
 int log2_exact(int64_t v) {
   int l = 0;
   while ((int64_t{1} << l) < v) ++l;
@@ -738,6 +898,38 @@ cudaError_t launch_global(const void* x, const void* r, void* ox, void* orank, i
   }
 }
 
+// Kernel M's one geometry (bitonic_sort.py: MERGE_THREADS, MERGE_ELEMS,
+// MERGE_PASSES).  The tile-edge search's latency is paid once a block and
+// shared by its passes: on an H100 SXM at 2^24 float32 keys, 256 x 16 took
+// 0.087 ms a launch with one tile a block and 0.074 with two; four tiles, 512
+// threads, 8 or 32 keys a thread, or the output staged through shared memory
+// for coalesced stores, were all slower.
+constexpr int kMergeThreads = 256, kMergeElems = 16, kMergePasses = 2;
+
+// Validates before any launch: cudaErrorInvalidValue unless (threads, elems,
+// passes) is kernel M's geometry, 2*width a multiple of a block's keys and
+// total a multiple of 2*width with at most 2^31 - 1 blocks;
+// cudaErrorMisalignedAddress unless both pointers start on 16 bytes.
+template <typename T>
+cudaError_t launch_merge(const void* x, void* out, int64_t total, int64_t width, int threads,
+                         int elems, int passes, cudaStream_t stream) {
+  using U = typename KeyBits<T>::U;
+  constexpr int64_t tile = int64_t{kMergeThreads} * kMergeElems;
+  constexpr int64_t block_keys = tile * kMergePasses;
+  const bool ok = threads == kMergeThreads && elems == kMergeElems && passes == kMergePasses &&
+                  width >= 1 && (2 * width) % block_keys == 0 && total >= 0 &&
+                  total % (2 * width) == 0 && total / block_keys <= INT32_MAX;
+  if (!ok) return cudaErrorInvalidValue;
+  for (const void* ptr : {x, static_cast<const void*>(out)}) {
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorMisalignedAddress;
+  }
+  if (total == 0) return cudaSuccess;
+  merge_runs_kernel<T, kMergeThreads, kMergeElems, kMergePasses>
+      <<<unsigned(total / block_keys), kMergeThreads, 0, stream>>>(
+          static_cast<const U*>(x), static_cast<U*>(out), width, 2 * width / tile);
+  return cudaGetLastError();
+}
+
 // dtype codes, as bitonic_sort.py passes them
 enum : int { kFloat32 = 0, kInt32 = 1, kFloat16 = 2, kBFloat16 = 3 };
 
@@ -793,6 +985,22 @@ extern "C" int bitonic_global_stage(int dtype, const void* x, const void* r, voi
   auto s = static_cast<cudaStream_t>(stream);
   return r ? dispatch_global<true>(dtype, x, r, ox, orank, rows, n, j_hi, j_lo, k, f, s)
            : dispatch_global<false>(dtype, x, r, ox, orank, rows, n, j_hi, j_lo, k, f, s);
+}
+
+// Kernel M: every pair of adjacent sorted runs of `width` keys in `total`
+// keys merged into `out`, `passes` tiles of `threads` x `elems` keys a block.
+extern "C" int bitonic_merge_runs(int dtype, const void* x, void* out, long long total,
+                                  long long width, int threads, int elems, int passes,
+                                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32: return launch_merge<float>(x, out, total, width, threads, elems, passes, s);
+    case kInt32: return launch_merge<int32_t>(x, out, total, width, threads, elems, passes, s);
+    case kFloat16: return launch_merge<__half>(x, out, total, width, threads, elems, passes, s);
+    case kBFloat16:
+      return launch_merge<__nv_bfloat16>(x, out, total, width, threads, elems, passes, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* bitonic_error_string(int err) {

@@ -15,8 +15,12 @@ import pytest
 import torch
 
 from repro_torch import engine
+from repro_torch.core import merge
+from repro_torch.core.shared_sort import shared_memory_sort
 from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
 from repro_torch.kernels.bitonic_sort import ops
+
+from test_torch_merge_path import CASES as MERGE_CASES, merge_keys, rank_merge
 
 pytestmark = pytest.mark.gpu
 
@@ -67,7 +71,7 @@ def test_block_kernels_match_plain(cuda, dtype, block_n):
     assert torch.equal(got_r.cpu(), want_r)
     assert kernels.launch_counts() == {
         "block_sort": 1, "block_merge": 1, "global_stage": 0,
-        "block_sort_kv": 1, "block_merge_kv": 1, "global_stage_kv": 0,
+        "block_sort_kv": 1, "block_merge_kv": 1, "global_stage_kv": 0, "merge_runs": 0,
     }
 
 
@@ -125,7 +129,7 @@ def test_sort_and_argsort_fuse_the_cross_tile_substages(cuda):
     assert torch.equal(ops.kernel_sort(x.to(cuda)).cpu(), torch.sort(x, dim=-1).values)
     assert kernels.launch_counts() == {
         "block_sort": 1, "block_merge": 11, "global_stage": 21,
-        "block_sort_kv": 0, "block_merge_kv": 0, "global_stage_kv": 0,
+        "block_sort_kv": 0, "block_merge_kv": 0, "global_stage_kv": 0, "merge_runs": 0,
     }
     assert kernels.substage_counts() == {"global_stage": 66, "global_stage_kv": 0}
     kernels.reset_launch_counts()
@@ -135,7 +139,7 @@ def test_sort_and_argsort_fuse_the_cross_tile_substages(cuda):
     assert torch.equal(idx.cpu().long(), torch.sort(keys, stable=True).indices)
     assert kernels.launch_counts() == {
         "block_sort": 0, "block_merge": 0, "global_stage": 0,
-        "block_sort_kv": 1, "block_merge_kv": 14, "global_stage_kv": 32,
+        "block_sort_kv": 1, "block_merge_kv": 14, "global_stage_kv": 32, "merge_runs": 0,
     }
     assert kernels.substage_counts() == {"global_stage": 0, "global_stage_kv": 105}
 
@@ -344,9 +348,114 @@ def test_block_n_above_the_cap_is_composed(cuda):
     # A: one A launch, then stage 2*cap: one C and one B; B: one C, one B
     assert kernels.launch_counts() == {
         "block_sort": 1, "block_merge": 2, "global_stage": 2,
-        "block_sort_kv": 1, "block_merge_kv": 2, "global_stage_kv": 2,
+        "block_sort_kv": 1, "block_merge_kv": 2, "global_stage_kv": 2, "merge_runs": 0,
     }
     y = _keys(torch.float32, (3, 100_000), seed=6)
     assert torch.equal(ops.kernel_sort(y.to(cuda), block_n=bn).cpu(), torch.sort(y, dim=-1).values)
     idx = ops.kernel_argsort(y.to(cuda), block_n=bn)
     assert torch.equal(idx.cpu().long(), torch.sort(y, dim=-1, stable=True).indices)
+
+
+def _model_b_runs(dtype, width, seed, cuda):
+    """2^24 keys, as model B's tree merges them, with ties, -0.0 beside +0.0
+    and NaN payloads mixed in, each ``width`` run sorted on the card on its
+    sort image."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = 1 << 24
+    if dtype == torch.int32:
+        x = torch.randint(-1000, 1000, (n,), generator=g, device=cuda, dtype=torch.int32)
+    else:
+        x = (torch.randn(n, generator=g, device=cuda) * 100).round().to(dtype)
+        x[torch.rand(n, generator=g, device=cuda) < 0.1] = -0.0
+        nan = torch.rand(n, generator=g, device=cuda) < 0.01
+        x[nan] = float("nan")
+        _bits(x)[nan & (torch.rand(n, generator=g, device=cuda) < 0.5)] ^= 1  # another payload
+        x[torch.rand(n, generator=g, device=cuda) < 0.01] = -float("nan")
+    rows = x.view(-1, width)
+    order = torch.sort(merge.sort_image(rows), dim=-1, stable=True).indices
+    return merge.gather_bits(rows, order).view(n)
+
+
+@pytest.mark.parametrize("width", [1 << 21, 1 << 22, 1 << 23])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_merge_runs_matches_the_rank_merge_at_model_b_shapes(cuda, dtype, width):
+    x = _model_b_runs(dtype, width, seed=width.bit_length(), cuda=cuda)
+    got = kernels.merge_runs(x, width)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, rank_merge(x.cpu(), width))
+    assert kernels.launch_counts()["merge_runs"] == 1
+
+
+@pytest.mark.parametrize("kind,dtype,shape,width", MERGE_CASES)
+def test_merge_runs_matches_the_rank_merge_on_special_keys(cuda, kind, dtype, shape, width):
+    x = merge_keys(kind, dtype, shape, width, seed=len(shape) * 1000 + width % 997)
+    _assert_same_bits(kernels.merge_runs(x.to(cuda), width), rank_merge(x, width))
+
+
+def test_merge_runs_on_unsorted_runs_stays_in_bounds(cuda):
+    # NaN keys leave the networks' runs unsorted on the image: the output is
+    # unspecified, but M reads and writes only inside its runs, as its plain
+    # version does, bit for bit
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(1 << 22, generator=g, device=cuda)
+    x[::7] = float("nan")
+    for width in (kernels.MERGE_TILE // 2, 1 << 21):
+        got = kernels.merge_runs(x, width)
+        torch.cuda.synchronize()
+        _assert_same_bits(got, kernels.plain_merge_runs(x, width))
+
+
+def test_model_b_sort_merges_every_round_in_kernel_m(cuda):
+    # the benchmark's sort: 10^7 keys, 8 tiles of 2^21, three rounds
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(10_000_000, generator=g, device=cuda)
+    got = shared_memory_sort(x, n_threads=8, local_impl="kernel")
+    assert torch.equal(got, torch.sort(x).values)
+    assert kernels.launch_counts()["merge_runs"] == 3
+    assert kernels.merge_round_counts() == {"merge_runs": 3, "rank_merge_pairs": 0}
+
+
+def test_merge_adjacent_routes_by_what_the_round_shows(cuda):
+    tile = kernels.MERGE_TILE
+    x = merge_keys("ties", torch.float32, (2, 4 * tile), tile, seed=6)
+    want = rank_merge(x, tile)
+    _assert_same_bits(merge.merge_adjacent(x.to(cuda), tile), want)
+    assert kernels.merge_round_counts() == {"merge_runs": 1, "rank_merge_pairs": 0}
+    # a view that starts off 16 bytes is copied, then merged by M
+    shifted = torch.cat([torch.zeros(1), x.view(-1)]).to(cuda)[1:].view(x.shape)
+    assert shifted.data_ptr() % 16
+    _assert_same_bits(merge.merge_adjacent(shifted, tile), want)
+    assert kernels.merge_round_counts() == {"merge_runs": 2, "rank_merge_pairs": 0}
+    # narrower than a tile, with values, or of another dtype: the rank merge
+    narrow = merge_keys("ties", torch.float32, (2, 4 * tile), tile // 4, seed=7)
+    _assert_same_bits(merge.merge_adjacent(narrow.to(cuda), tile // 4), rank_merge(narrow, tile // 4))
+    v = torch.arange(x.numel(), dtype=torch.int32).view(x.shape)
+    got, got_v = merge.merge_adjacent(x.to(cuda), tile, {"i": v.to(cuda)})
+    _assert_same_bits(got, want)
+    wide = merge_keys("ties", torch.int32, (2, 4 * tile), tile, seed=8).to(torch.int64)
+    got = merge.merge_adjacent(wide.to(cuda), tile)
+    assert torch.equal(got.cpu(), merge.merge_adjacent(wide, tile))
+    assert kernels.merge_round_counts() == {"merge_runs": 2, "rank_merge_pairs": 3}
+    assert kernels.launch_counts()["merge_runs"] == 2
+
+
+def test_merge_runs_refuses_what_it_does_not_take(cuda):
+    tile = kernels.MERGE_TILE
+    x = torch.zeros(4 * tile, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.merge_runs(x.to(torch.int64), tile)
+    with pytest.raises(TypeError):
+        kernels.merge_runs(x.double(), tile)
+    with pytest.raises(ValueError, match="MERGE_TILE"):
+        kernels.merge_runs(x, tile // 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.merge_runs(torch.zeros(2 * tile, 2, device=cuda).t(), tile)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.merge_runs(torch.zeros(4 * tile + 1, device=cuda)[1:], tile)
+    # the entry point refuses a geometry it was not built for
+    out = torch.empty_like(x)
+    err = kernels._lib().bitonic_merge_runs(0, x.data_ptr(), out.data_ptr(), x.numel(), tile,
+                                            kernels.MERGE_THREADS, 3, kernels.MERGE_PASSES,
+                                            torch.cuda.current_stream().cuda_stream)
+    assert err and kernels._lib().bitonic_error_string(err) == b"invalid argument"
+    assert kernels.launch_counts()["merge_runs"] == 0
