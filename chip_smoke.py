@@ -579,7 +579,10 @@ def tile_variants(kernels, xs, kv_keys, kv_r, bn: int) -> dict:
             ox, orank = torch.empty_like(x), None if r is None else torch.empty_like(r)
 
             def run(g=g, ox=ox, orank=orank):
-                kernels._launch("bitonic_tile_network", x, r, ox, orank, bn, *stages, *g)
+                kernels._launch("bitonic_tile_network", kernels._DTYPE_CODE[x.dtype], x.data_ptr(),
+                                None if r is None else r.data_ptr(), ox.data_ptr(),
+                                None if orank is None else orank.data_ptr(), x.numel() // k, k, bn,
+                                *stages, *g, torch.cuda.current_stream().cuda_stream)
 
             run()
             torch.cuda.synchronize()
@@ -1155,7 +1158,7 @@ def phase_nan_merge(kernels, device, add, n=NAN_N) -> dict:
 
     def no_image():
         block_n, rows = ops._padded_rows(logits, ops.DEFAULT_BLOCK_N)
-        return ops._argsort_rows(rows, block_n)
+        return kernels.sort_rows(rows, block_n, ranked=True)
 
     def with_image():
         return ops.kernel_argsort(logits)

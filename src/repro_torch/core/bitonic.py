@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.exchange import sentinel_for
+from repro_torch.kernels.bitonic_sort.bitonic_sort import next_pow2
 
 __all__ = [
     "bitonic_sort",
@@ -27,10 +28,6 @@ __all__ = [
     "next_pow2",
     "sentinel_for",
 ]
-
-
-def next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
 
 
 def _map_values(fn, values):

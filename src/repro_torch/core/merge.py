@@ -7,7 +7,7 @@ left-run elements precede equal right-run elements — a *stable* merge),
 inverts that permutation with ``scatter_`` and gathers by it.  Plain torch:
 the reference, too, computes it outside any kernel.
 
-Float runs are searched on ``sort_image``, an order-preserving integer
+Float runs are searched on ``keys.sort_image``, an order-preserving integer
 image in which -0.0 equals +0.0 and every NaN equals every other and sorts
 after ``+inf``: ``jnp.searchsorted``'s order, which ``torch.searchsorted``
 does not share for NaN.  So runs holding NaN merge as the reference's do,
@@ -15,16 +15,18 @@ and the positions always form a permutation.
 
 ``merge_adjacent`` is one round of the paper's bottom-up merge: runs of width
 ``w`` become runs of width ``2w``.  ``values`` is a dict of tensors shaped
-like the keys.  On the card, a keys-only round of float32, int32, float16 or
-bfloat16 whose merged runs (``2w``) fill whole tiles of kernel M
-(``kernels/bitonic_sort``: ``merge_runs``, ``MERGE_TILE``) is one launch of
-that kernel, whose merge path takes the same order and tie rule and so
-gives the same bits on sorted runs; every other round is ``rank_merge_pairs``,
-counted on the card as ``merge_runs.plain_cuda_rounds``.
+like the keys.  On the card, a keys-only round that kernel M takes
+(``kernels/bitonic_sort``: ``merge_runs_takes``) is one launch of that
+kernel, whose merge path takes the same order and tie rule and so gives the
+same bits on sorted runs; every other round is ``rank_merge_pairs``, counted
+on the card in the kernels' ``tally`` (``merge_round_counts``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.bitonic_sort.bitonic_sort import merge_runs, merge_runs_takes, tally
+from repro_torch.keys import gather_bits, sort_image
 
 __all__ = ["rank_merge_pairs", "merge_adjacent", "merge_sorted_pair", "sort_image", "gather_bits"]
 
@@ -34,39 +36,6 @@ def _invert_perm(perm: torch.Tensor) -> torch.Tensor:
     reference's ``jnp.zeros_like(p).at[p].set(i)``)."""
     iota = torch.arange(perm.shape[-1], dtype=perm.dtype, device=perm.device)
     return torch.zeros_like(perm).scatter_(-1, perm, iota.expand(perm.shape))
-
-
-_SAME_SIZE_INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-
-
-def gather_bits(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``torch.gather`` along the last axis that keeps every bit: floats move
-    as integers of their size (the CPU's vectorized bfloat16 gather rewrites
-    NaN payloads)."""
-    if x.dtype.is_floating_point:
-        iv = _SAME_SIZE_INT[x.element_size()]
-        return torch.gather(x.view(iv), -1, index).view(x.dtype)
-    return torch.gather(x, -1, index)
-
-
-def sort_image(x: torch.Tensor) -> torch.Tensor:
-    """Floats as integers in the order of ``jnp.sort`` and
-    ``jnp.searchsorted``: -0.0 == +0.0, and NaN (either sign) above
-    ``+inf``, all NaN equal.  Other dtypes as they are.  torch's library
-    sort on the card orders a negative NaN first; on this image it orders
-    as on the CPU and as the reference does.
-
-    >>> sort_image(torch.tensor([-1.0, -0.0, 0.0, float("inf"), float("nan")])).tolist()
-    [-1065353217, 0, 0, 2139095040, 2147483647]
-    """
-    if not x.dtype.is_floating_point:
-        return x
-    ft, it = (torch.float64, torch.int64) if x.dtype == torch.float64 else (torch.float32, torch.int32)
-    f = x.to(ft) + 0.0  # -0.0 -> +0.0
-    i = f.view(it)
-    mag = torch.iinfo(it).max
-    i = torch.where(i < 0, i ^ mag, i)  # sign-magnitude -> two's-complement order
-    return torch.where(torch.isnan(f), mag, i)
 
 
 def rank_merge_pairs(pairs: torch.Tensor, values: dict | None = None):
@@ -102,14 +71,6 @@ def merge_sorted_pair(a, b, va=None, vb=None):
     return rank_merge_pairs(pairs, values)
 
 
-def _kernel_m_takes(dtype: torch.dtype, width: int, values) -> bool:
-    """Whether a round on the card is kernel M's: keys only, of a dtype it
-    takes, the merged runs whole tiles of it."""
-    from repro_torch.kernels.bitonic_sort.bitonic_sort import KEY_DTYPES, MERGE_TILE
-
-    return values is None and dtype in KEY_DTYPES and (2 * width) % MERGE_TILE == 0
-
-
 def merge_adjacent(x: torch.Tensor, width: int, values: dict | None = None):
     """One bottom-up merge round: sorted runs of ``width`` -> runs of ``2*width``.
 
@@ -123,12 +84,10 @@ def merge_adjacent(x: torch.Tensor, width: int, values: dict | None = None):
     if n % (2 * width):
         raise ValueError(f"length {n} is not a multiple of 2 * width = {2 * width}")
     if x.is_cuda:
-        from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
-
-        if _kernel_m_takes(x.dtype, width, values):
+        if values is None and merge_runs_takes(x.dtype, width):
             x = x.contiguous()
-            return kernels.merge_runs(x.clone() if x.data_ptr() % 16 else x, width)
-        kernels.merge_runs.plain_cuda_rounds += 1
+            return merge_runs(x.clone() if x.data_ptr() % 16 else x, width)
+        tally["rank_merge_pairs"] += 1
     pairs = x.reshape(*lead, n // (2 * width), 2, width)
     if values is None:
         return rank_merge_pairs(pairs).reshape(*lead, n)

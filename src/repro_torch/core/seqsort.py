@@ -16,8 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.bitonic_sort.ops import DEFAULT_BLOCK_N, kernel_sort
+from repro_torch.keys import gather_bits, sort_image
+
 from .bitonic import bitonic_sort, next_pow2, sentinel_for
-from .merge import gather_bits, merge_adjacent, sort_image
+from .merge import merge_adjacent
 
 __all__ = [
     "recursive_merge_sort_host",
@@ -94,8 +97,6 @@ def kernel_local_sort(
     >>> kernel_local_sort(torch.tensor([[3, 1], [0, 2]], dtype=torch.int32)).tolist()
     [[1, 3], [0, 2]]
     """
-    from repro_torch.kernels.bitonic_sort.ops import DEFAULT_BLOCK_N, kernel_sort
-
     out = kernel_sort(x, block_n=DEFAULT_BLOCK_N if block_n is None else block_n)
     return out if ascending else torch.flip(out, dims=(-1,))
 

@@ -11,13 +11,14 @@ Model B: local sort = the "quicksort" role       (``'xla'``/``'bitonic'``/``'ker
 
 torch has no ``searchsorted``, ``gather``, ``flip`` or ``where`` for uint16
 and uint32, which the merge tree and the plain network need: those keys are
-sorted as the kernels' order-preserving int32 image (``ops._to_kernel_keys``)
+sorted as the kernels' order-preserving int32 image (``keys.to_kernel_keys``)
 and mapped back, bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.keys import from_kernel_keys, to_kernel_keys
 from repro_torch.tracing import span
 
 from .bitonic import next_pow2, sentinel_for
@@ -50,11 +51,9 @@ def shared_memory_sort(
     if n_threads & (n_threads - 1) or n_threads < 1:
         raise ValueError("n_threads must be a power of two (paper §3.2)")
     if x.dtype in (torch.uint16, torch.uint32):
-        from repro_torch.kernels.bitonic_sort.ops import _from_kernel_keys, _to_kernel_keys
-
-        out = shared_memory_sort(_to_kernel_keys(x), n_threads=n_threads, local_impl=local_impl,
+        out = shared_memory_sort(to_kernel_keys(x), n_threads=n_threads, local_impl=local_impl,
                                  ascending=ascending, block_n=block_n)
-        return _from_kernel_keys(out, x.dtype)
+        return from_kernel_keys(out, x.dtype)
     *lead, n = x.shape
     np2 = max(next_pow2(n), n_threads)
     if np2 != n:

@@ -31,7 +31,6 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.carry import as_tensor
 from repro_torch.core.cluster_sort import owned_count_and_peak
-from repro_torch.core.merge import sort_image
 from repro_torch.core.radix import make_partitioner
 from repro_torch.exchange import (
     AxisGroup,
@@ -42,24 +41,11 @@ from repro_torch.exchange import (
     slab_geometry,
     slab_valid,
 )
+from repro_torch.kernels.bitonic_sort.ops import DEFAULT_BLOCK_N, kernel_argsort
+from repro_torch.keys import int_bits, rev_key, sort_image
 from repro_torch.tracing import span
 
 __all__ = ["sort_kv", "sort_pairs", "argsort", "topk", "cluster_sort_kv"]
-
-
-# torch has no bitwise NOT or gather for these: take them on the same bits as signed
-_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32}
-
-
-def _rev_key(keys: torch.Tensor) -> torch.Tensor:
-    """Order-reversing self-inverse bijection: negation for floats, bitwise
-    NOT for ints (~x = -x-1 is strictly decreasing; even INT_MIN is safe;
-    unsigned, ~x = MAX - x)."""
-    if keys.dtype.is_floating_point:
-        return -keys
-    if keys.dtype in _SIGNED_TWIN:
-        return (~keys.view(_SIGNED_TWIN[keys.dtype])).view(keys.dtype)
-    return ~keys
 
 
 def _order_keys(
@@ -79,10 +65,8 @@ def _order_keys(
     takes them so, one that returns them casts to int32.
     """
     with span("repro_torch.kv.order", device=keys):
-        k = keys if ascending else _rev_key(keys)
+        k = keys if ascending else rev_key(keys)
         if impl == "kernel":
-            from repro_torch.kernels.bitonic_sort.ops import DEFAULT_BLOCK_N, kernel_argsort
-
             return kernel_argsort(k, block_n=block_n or DEFAULT_BLOCK_N)
         if impl != "xla":
             raise ValueError(f"argsort impl must be 'xla' or 'kernel', got {impl!r}")
@@ -94,9 +78,9 @@ def _gather_last(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Index ``v`` (shaped like keys + optional trailing dims) by ``order``."""
     extra = v.dim() - order.dim()
     idx = order.long().reshape(order.shape + (1,) * extra).expand(order.shape + v.shape[order.dim():])
-    if v.dtype in _SIGNED_TWIN:
-        return torch.gather(v.view(_SIGNED_TWIN[v.dtype]), order.dim() - 1, idx).view(v.dtype)
-    return torch.gather(v, order.dim() - 1, idx)
+    if v.dtype.is_floating_point:  # as floats, so gradients flow (the MoE router's top-k values)
+        return torch.gather(v, order.dim() - 1, idx)
+    return torch.gather(int_bits(v), order.dim() - 1, idx).view(v.dtype)
 
 
 # ------------------------------------------------------------- cluster path ---
@@ -234,9 +218,9 @@ def sort_kv(
                 "descending distributed sort_kv needs a data-adaptive mode "
                 "('splitters', 'sample', or 'radix')"
             )
-        k, v = sort_kv(_rev_key(keys), values, mesh=mesh, axis=axis, compress=compress,
+        k, v = sort_kv(rev_key(keys), values, mesh=mesh, axis=axis, compress=compress,
                        **cluster_kw)
-        return _rev_key(k), v
+        return rev_key(k), v
     if "capacity_factor" not in cluster_kw and "telemetry" not in cluster_kw:
         # close the capacity-learning loop through the default planner, keyed
         # by the global length; an explicit capacity_factor= or telemetry=

@@ -15,36 +15,38 @@ loads it with ``ctypes``, and wraps each kernel:
                                            GLOBAL_SPAN of them)
   M     merge_runs                         one round of model B's merge tree:
                                            adjacent sorted runs merged stably
-                                           on ``core.merge.sort_image``
+                                           on ``keys.sort_image``
 
 A and B are one CUDA kernel body (``tile_network``) that holds a tile in
 registers and runs stages k_first .. k_last of it (``_tile_geometry``).  C
 holds groups of up to 2**GLOBAL_SPAN keys a thread in registers: a stage's
 substages at distances >= block_n take ``global_spans`` launches, a pass over
-memory each, instead of one a substage.  Both C wrappers count their launches
-on ``global_stage(_kv).launches`` and the substages those ran on
-``.substages`` (``substage_counts``).  M is a merge path over output tiles of
-``MERGE_THREADS * MERGE_ELEMS`` keys, ``MERGE_PASSES`` of them (``MERGE_TILE``
-keys) a block; ``core.merge.merge_adjacent`` routes the rounds it takes to it
-and counts the card's other rounds on ``merge_runs.plain_cuda_rounds``
-(``merge_round_counts``).
+memory each, instead of one a substage.  M is a merge path over output tiles
+of ``MERGE_THREADS * MERGE_ELEMS`` keys, ``MERGE_PASSES`` of them
+(``MERGE_TILE`` keys) a block; ``merge_runs_takes`` is the rule for the
+rounds it takes, by which ``core.merge.merge_adjacent`` routes them to it.
+
+Every launch is a step of a schedule: ``_tile_launches`` for kernel A or B at
+one tile width, ``sort_launches`` for the whole network of a sort.  The
+wrappers and ``sort_rows`` check their input once (``_check``, and
+``_check_stage`` for a stage's parameters) and hand it with their steps to
+``_run``, which runs the steps where the tensor lives: on a CUDA
+tensor it launches each step through ``_launch`` and counts it in ``tally``
+(``launch_counts``, ``substage_counts``, ``merge_round_counts``); on a CPU
+tensor it runs the plain torch version, which repeats the kernel's
+arithmetic step by step.
 
 Every network wrapper takes a contiguous tensor whose last axis (length n, a
 power of two) is sorted row by row; the leading dims are rows of the kernel grid.  The
 ``*_kv`` twins carry int32 ranks with the (key, rank) comparator, so the rank
-output is the stable permutation.
-
-A wrapper runs where its tensor lives: on a CUDA tensor it launches the
-kernel (and adds one to its ``launches`` count) or raises; on a CPU tensor it
-runs the plain torch version of the same network, which repeats the kernel's
-arithmetic step by step.  Keys may be float32, int32, float16 or bfloat16.
-One launch of A or B holds tiles of at most ``MAX_BLOCK_N`` keys (one CUDA
-block's shared memory); a wider power-of-two ``block_n`` is composed from
-launches at the cap (``_tile_launches``), as the TPU's VMEM took it whole.
-NaN keys give unspecified output from the networks, as in the reference.  A,
-B and M copy their inputs by 16-byte words, so on the card these must start on
-a 16-byte boundary (``ValueError`` otherwise); ``ops.py`` and
-``merge_adjacent`` copy a caller's view that does not.
+output is the stable permutation.  Keys may be float32, int32, float16 or
+bfloat16.  One launch of A or B holds tiles of at most ``MAX_BLOCK_N`` keys
+(one CUDA block's shared memory); a wider power-of-two ``block_n`` is
+composed from launches at the cap (``_tile_launches``), as the TPU's VMEM
+took it whole.  NaN keys give unspecified output from the networks, as in
+the reference.  A, B and M copy their inputs by 16-byte words, so on the
+card these must start on a 16-byte boundary (``ValueError`` otherwise);
+``ops.py`` and ``merge_adjacent`` copy a caller's view that does not.
 """
 from __future__ import annotations
 
@@ -54,12 +56,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.merge import sort_image
+from repro_torch.keys import int_bits, sort_image
 
 __all__ = [
     "MAX_BLOCK_N",
@@ -87,6 +90,11 @@ __all__ = [
     "merge_runs",
     "plain_merge_runs",
     "merge_round_counts",
+    "merge_runs_takes",
+    "sort_launches",
+    "sort_rows",
+    "tally",
+    "next_pow2",
 ]
 
 # f32 keys + int32 ranks at 16384 is 128 KiB of the 227 KiB a block may use
@@ -104,7 +112,6 @@ KEY_DTYPES = tuple(_DTYPE_CODE)
 MERGE_THREADS, MERGE_ELEMS, MERGE_PASSES = 256, 16, 2
 MERGE_TILE = MERGE_THREADS * MERGE_ELEMS * MERGE_PASSES  # output keys a block of M writes
 _SPLIT_PROBES = 32  # M's tile-edge search: one probe a lane of a warp
-_BITS = {2: torch.int16, 4: torch.int32}  # the plain M moves keys as integers of their size
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "bitonic_sort.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
@@ -162,6 +169,11 @@ def _is_pow2(v: int) -> bool:
     return v >= 1 and v & (v - 1) == 0
 
 
+def next_pow2(n: int) -> int:
+    """The length a row of ``n >= 1`` keys is padded to: the least power of two >= n."""
+    return 1 << max(0, (n - 1).bit_length())
+
+
 def _on_cuda(x: torch.Tensor) -> bool:
     """True to launch the kernel, False to run the plain version."""
     if x.device.type == "cuda":
@@ -169,26 +181,6 @@ def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"bitonic kernels run on CUDA or CPU tensors, not {x.device}")
-
-
-def _check(x: torch.Tensor, r: torch.Tensor | None, block_n: int | None = None) -> int:
-    """Validate keys (and ranks); return the row length n."""
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported key dtype {x.dtype}; expected one of {list(_DTYPE_CODE)}")
-    if x.dim() < 1 or not _is_pow2(x.shape[-1]):
-        raise ValueError(f"last axis must be a power of two, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("keys must be contiguous")
-    if r is not None:
-        if r.dtype != torch.int32 or r.shape != x.shape or r.device != x.device:
-            raise ValueError("ranks must be int32, shaped and placed like the keys")
-        if not r.is_contiguous():
-            raise ValueError("ranks must be contiguous")
-    n = x.shape[-1]
-    if block_n is not None:
-        if not _is_pow2(block_n) or block_n > n:
-            raise ValueError(f"block_n={block_n} must be a power of two <= n={n}")
-    return n
 
 
 class TileGeometry(NamedTuple):
@@ -235,18 +227,11 @@ def _check_aligned(*tensors) -> None:
             )
 
 
-def _launch(fn: str, x, r, ox, orank, *args) -> None:
-    n = x.shape[-1]
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, fn)(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), None if r is None else r.data_ptr(),
-            ox.data_ptr(), None if orank is None else orank.data_ptr(),
-            x.numel() // n, n, *args, stream,
-        )
+def _launch(fn: str, *args) -> None:
+    """Call the library's entry point ``fn``; raise on the error it returns."""
+    err = getattr(_lib(), fn)(*args)
     if err:
-        raise RuntimeError(f"{fn} failed: {lib.bitonic_error_string(err).decode()}")
+        raise RuntimeError(f"{fn} failed: {_lib().bitonic_error_string(err).decode()}")
 
 
 # ------------------------------------------------------------- plain versions ---
@@ -282,43 +267,42 @@ def _directions(i, k: int, f: int):
     return ((i & k & (f - 1)) == 0) == ((i & f) == 0)
 
 
-def plain_block_sort(x, r, block_n: int):
-    """Kernel A (``r`` None) or A-kv in plain torch, on any device -> (x, r)."""
-    n = x.shape[-1]
-    k = 2
-    while k <= block_n:
-        j = k // 2
-        while j >= 1:
-            x, r = _ce_plain(x, r, j, _directions(_group_starts(n, j, x.device), k, block_n))
-            j //= 2
-        k *= 2
-    return x, r
-
-
-def plain_block_merge(x, r, block_n: int, k: int):
-    """Kernel B or B-kv in plain torch, on any device -> (x, r)."""
-    n = x.shape[-1]
-    j = block_n // 2
-    while j >= 1:
-        x, r = _ce_plain(x, r, j, _directions(_group_starts(n, j, x.device), k, 0))
+def plain_global_stages(x, r, j_hi: int, j_lo: int, k: int, f: int = 0):
+    """One launch of kernel C (or C-kv) over substages j_hi .. j_lo of stage
+    k in plain torch, on any device -> (x, r): those substages one by one, as
+    the kernel runs them in registers; ``f`` is the parity mask of a tile
+    above the cap (``_tile_launches``)."""
+    j = j_hi
+    while j >= j_lo:
+        x, r = _ce_plain(x, r, j, _directions(_group_starts(x.shape[-1], j, x.device), k, f))
         j //= 2
     return x, r
 
 
 def plain_global_stage(x, r, j: int, k: int, f: int = 0):
-    """Kernel C or C-kv in plain torch, on any device -> (x, r); ``f`` is the
-    parity mask of a tile above the cap (``_tile_launches``)."""
-    return _ce_plain(x, r, j, _directions(_group_starts(x.shape[-1], j, x.device), k, f))
+    """Kernel C or C-kv in plain torch at one substage -> (x, r)."""
+    return plain_global_stages(x, r, j, j, k, f)
 
 
-def plain_global_stages(x, r, j_hi: int, j_lo: int, k: int, f: int = 0):
-    """One launch of kernel C (or C-kv) over substages j_hi .. j_lo in plain
-    torch: those substages one by one, as the kernel runs them in registers."""
-    j = j_hi
-    while j >= j_lo:
-        x, r = plain_global_stage(x, r, j, k, f)
-        j //= 2
+def _plain_tile(x, r, block_n: int, k_first: int, k_last: int, f: int):
+    """One launch of the tile kernel in plain torch: stages k_first .. k_last
+    of every ``block_n`` tile, each over substages min(k, block_n)/2 .. 1,
+    with parity mask f."""
+    k = k_first
+    while k <= k_last:
+        x, r = plain_global_stages(x, r, min(k, block_n) // 2, 1, k, f)
+        k *= 2
     return x, r
+
+
+def plain_block_sort(x, r, block_n: int):
+    """Kernel A (``r`` None) or A-kv in plain torch, on any device -> (x, r)."""
+    return _plain_tile(x, r, block_n, 2, block_n, block_n)
+
+
+def plain_block_merge(x, r, block_n: int, k: int):
+    """Kernel B or B-kv in plain torch, on any device -> (x, r)."""
+    return _plain_tile(x, r, block_n, k, k, 0)
 
 
 def _at(run: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -357,7 +341,7 @@ def plain_merge_runs(x, width: int, threads: int = MERGE_THREADS, elems: int = M
     those slices, then takes ``elems`` keys in order, run a's on equal images."""
     tile = threads * elems
     shape, w = x.shape, width
-    keys = x.view(_BITS[x.element_size()]).reshape(-1, 2, w)
+    keys = int_bits(x).reshape(-1, 2, w)
     img = sort_image(x).reshape(-1, 2, w)
     ka, kb, ba, bb = img[:, 0], img[:, 1], keys[:, 0], keys[:, 1]
     d0 = torch.arange(0, 2 * w + 1, tile, device=x.device).expand(ka.shape[0], -1)
@@ -395,191 +379,209 @@ def global_spans(j_hi: int, j_lo: int) -> tuple:
     return tuple(spans)
 
 
-def _check_stage(n: int, j: int, k: int, j_lo: int | None = None) -> None:
-    if not (_is_pow2(j) and _is_pow2(k) and 2 * j <= k <= n):
-        raise ValueError(f"need powers of two with 2*j <= k <= n, got j={j} k={k} n={n}")
-    if j_lo is not None and not (_is_pow2(j_lo) and j_lo <= j < j_lo << GLOBAL_SPAN):
-        raise ValueError(
-            f"need a power of two j_lo <= j_hi within {GLOBAL_SPAN} substages, got j_hi={j} j_lo={j_lo}")
-
-
 @functools.cache
 def _tile_launches(block_n: int, k: int | None, cap: int = MAX_BLOCK_N) -> tuple:
     """The launches that make up kernel A (``k`` None) or kernel B at stage
     ``k`` on tiles of ``block_n`` keys: ``(kernel, width, k_first, k_last,
     f)`` for a tile launch, kernel "sort" (A, stages 2 .. width) or "merge"
-    (B, the one stage k), and ``("global", j, k, f)`` for kernel C.
+    (B, the one stage k), and ``("global", j_hi, j_lo, k, f)`` for a launch
+    of kernel C over substages j_hi .. j_lo.
 
-    Up to ``cap`` this is one launch.  A wider tile W runs A at the cap with
-    parity mask f = W, then each stage k = 2*cap .. W as C for j = k/2 .. cap
-    and B at the cap, all with f = W; B on W-wide tiles is C for
-    j = W/2 .. cap, then B at the cap.  C's substages are grouped by
-    ``global_spans``: a step ``("global", j_hi, j_lo, k, f)`` is one launch."""
+    Up to ``cap`` this is one launch.  A wider tile W is the network of a
+    sort of W keys at the cap (``sort_launches``), every launch with parity
+    mask f = W; B on W-wide tiles is C for j = W/2 .. cap, then B at the cap.
+    C's substages are grouped by ``global_spans``."""
     if block_n <= cap:
         return (("sort", block_n, 2, block_n, block_n),) if k is None else (("merge", block_n, k, k, 0),)
-    steps, f = [], 0
     if k is None:
-        steps.append(("sort", cap, 2, cap, block_n))
-        stages, f = [1 << s for s in range(cap.bit_length(), block_n.bit_length())], block_n
-    else:
-        stages = [k]
-    for kk in stages:
-        steps += [("global", *span, kk, f) for span in global_spans(min(kk, block_n) // 2, cap)]
-        steps.append(("merge", cap, kk, kk, f))
+        return tuple((*step[:-1], block_n) for step in sort_launches(block_n, cap, cap))
+    spans = tuple(("global", *span, k, 0) for span in global_spans(block_n // 2, cap))
+    return spans + _tile_launches(cap, k, cap)
+
+
+@functools.cache
+def sort_launches(n: int, block_n: int, cap: int = MAX_BLOCK_N) -> tuple:
+    """The launches of the whole network of a sort of rows of ``n`` keys at
+    tile width ``block_n``, as steps of ``_tile_launches``: kernel A, then
+    for each stage k = 2*block_n .. n kernel C over its substages
+    j = k/2 .. block_n (``global_spans``, parity mask 0) and kernel B.  The
+    reference's ``_pallas_sort_impl`` and ``_pallas_argsort_impl`` run this
+    network."""
+    steps = list(_tile_launches(block_n, None, cap))
+    for k in (1 << s for s in range(block_n.bit_length(), n.bit_length())):
+        steps += [("global", *span, k, 0) for span in global_spans(k // 2, block_n)]
+        steps += _tile_launches(block_n, k, cap)
     return tuple(steps)
 
 
-# ------------------------------------------------------------------ wrappers ---
-def _launch_tile(x, r, kind: str, block_n: int, k_first: int, k_last: int, f: int):
-    """One launch of the tile kernel as A (``kind`` "sort") or B ("merge"),
-    counted on the wrapper of that kernel."""
-    out, out_r = torch.empty_like(x), None if r is None else torch.empty_like(r)
-    geometry = _tile_geometry(block_n, x.element_size(), r is not None, kind == "sort")
-    _launch("bitonic_tile_network", x, r, out, out_r, block_n, k_first, k_last, f, *geometry)
-    counted = {"sort": (block_sort, block_sort_kv), "merge": (block_merge, block_merge_kv)}[kind]
-    counted[r is not None].launches += 1
-    return out, out_r
+# launches by wrapper name (``KERNELS``), the substages that C and C-kv ran
+# ("substages", "substages_kv") and the merge rounds on the card that
+# ``core.merge.merge_adjacent`` left to the rank merge ("rank_merge_pairs")
+tally: Counter = Counter()
 
 
-def _launch_global(x, r, j_hi: int, j_lo: int, k: int, f: int):
-    """One launch of kernel C over substages j_hi .. j_lo, counted on the
-    one-substage wrapper with the substages it ran."""
-    out, out_r = torch.empty_like(x), None if r is None else torch.empty_like(r)
-    _launch("bitonic_global_stage", x, r, out, out_r, j_hi, j_lo, k, f)
-    counted = global_stage if r is None else global_stage_kv
-    counted.launches += 1
-    counted.substages += j_hi.bit_length() - j_lo.bit_length() + 1
-    return out, out_r
+def merge_runs_takes(dtype: torch.dtype, width: int) -> bool:
+    """Kernel M's rule: keys of a dtype it takes, in runs of ``width`` whose
+    merged runs (``2 * width``) fill whole tiles of it (``MERGE_TILE``)."""
+    return dtype in _DTYPE_CODE and width >= 1 and (2 * width) % MERGE_TILE == 0
 
 
-def _run_tiles(x, r, block_n: int, k: int | None):
-    """Kernel A (k None) or B on the card, through ``_tile_launches``."""
+def _check(x, r, block_n=None, width=None) -> int:
+    """Validate keys (and ranks) and the tile width; return the row length n,
+    a power of two, or for kernel M (``width`` given) a multiple of
+    ``2 * width`` that ``merge_runs_takes``."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported key dtype {x.dtype}; expected one of {list(_DTYPE_CODE)}")
+    if x.dim() < 1 or not x.is_contiguous():
+        raise ValueError(f"keys must be contiguous with at least one axis, got shape {tuple(x.shape)}")
+    n = x.shape[-1]
+    if width is not None:
+        if not merge_runs_takes(x.dtype, width) or n % (2 * width):
+            raise ValueError(f"merge_runs needs 2 * width a multiple of MERGE_TILE = {MERGE_TILE} "
+                             f"that divides the last axis, got width={width}, n={n}")
+    elif not _is_pow2(n):
+        raise ValueError(f"last axis must be a power of two, got shape {tuple(x.shape)}")
+    if r is not None and (r.dtype != torch.int32 or r.shape != x.shape or r.device != x.device
+                          or not r.is_contiguous()):
+        raise ValueError("ranks must be int32, contiguous, shaped and placed like the keys")
+    if block_n is not None and not (_is_pow2(block_n) and block_n <= n):
+        raise ValueError(f"block_n={block_n} must be a power of two <= n={n}")
+    return n
+
+
+def _check_stage(n: int, j_hi: int, j_lo: int, k: int) -> None:
+    """Substages j_hi .. j_lo of stage k in one launch: of C, or of B at
+    j_hi = j_lo = block_n."""
+    if not (_is_pow2(j_hi) and _is_pow2(j_lo) and _is_pow2(k)
+            and j_lo <= j_hi < j_lo << GLOBAL_SPAN and 2 * j_hi <= k <= n):
+        raise ValueError(f"need powers of two j_lo <= j_hi within {GLOBAL_SPAN} substages and "
+                         f"2*j_hi <= k <= n, got j_hi={j_hi} j_lo={j_lo} k={k} n={n}")
+
+
+def _run(x, r, steps):
+    """The one path of every launch: run ``steps`` (see ``_tile_launches``;
+    ``("runs", width)`` is one launch of kernel M) on keys ``x`` checked by
+    the caller, or on (key, rank) pairs where ``r`` is given -> (x, r).  On
+    a CUDA tensor each step is one launch through ``_launch``, counted in
+    ``tally``; on a CPU tensor its plain version.  The inputs are let go
+    after the first step, as the steps' outputs are."""
+    if not _on_cuda(x):
+        for kind, *args in steps:
+            if kind == "global":
+                x, r = plain_global_stages(x, r, *args)
+            elif kind == "runs":
+                x = plain_merge_runs(x, *args)
+            else:
+                x, r = _plain_tile(x, r, *args)
+        return x, r
     _check_aligned(x, r)
-    for kind, *args in _tile_launches(block_n, k):
-        if kind == "global":
-            x, r = _launch_global(x, r, *args)
-        else:
-            x, r = _launch_tile(x, r, kind, *args)
+    code, kv, n = _DTYPE_CODE[x.dtype], "" if r is None else "_kv", x.shape[-1]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for kind, *args in steps:
+            out, out_r = torch.empty_like(x), None if r is None else torch.empty_like(r)
+            if kind == "runs":
+                # the entry point checks the geometry against the one it was built for
+                _launch("bitonic_merge_runs", code, x.data_ptr(), out.data_ptr(), x.numel(), *args,
+                        MERGE_THREADS, MERGE_ELEMS, MERGE_PASSES, stream)
+                tally["merge_runs"] += 1
+            else:
+                rows = (code, x.data_ptr(), None if r is None else r.data_ptr(), out.data_ptr(),
+                        None if r is None else out_r.data_ptr(), x.numel() // n, n)
+                if kind == "global":
+                    _launch("bitonic_global_stage", *rows, *args, stream)
+                    tally["global_stage" + kv] += 1
+                    tally["substages" + kv] += args[0].bit_length() - args[1].bit_length() + 1
+                else:
+                    geometry = _tile_geometry(args[0], x.element_size(), r is not None, kind == "sort")
+                    _launch("bitonic_tile_network", *rows, *args, *geometry, stream)
+                    tally["block_" + kind + kv] += 1
+            x, r = out, out_r
     return x, r
 
 
+# ------------------------------------------------------------------ wrappers ---
 def block_sort(x: torch.Tensor, block_n: int) -> torch.Tensor:
     """Kernel A: sort every aligned ``block_n`` tile of each row, tile b of a
     row ascending iff b is even (replaces ``_block_sort_kernel``)."""
     _check(x, None, block_n)
-    if not _on_cuda(x):
-        return plain_block_sort(x, None, block_n)[0]
-    return _run_tiles(x, None, block_n, None)[0]
+    return _run(x, None, _tile_launches(block_n, None))[0]
 
 
 def block_merge(x: torch.Tensor, block_n: int, k: int) -> torch.Tensor:
     """Kernel B: substages j = block_n/2 .. 1 of stage ``k > block_n``, fused
     per tile; up iff (tile start & k) == 0 (replaces ``_block_merge_kernel``)."""
-    n = _check(x, None, block_n)
-    _check_stage(n, block_n, k)
-    if not _on_cuda(x):
-        return plain_block_merge(x, None, block_n, k)[0]
-    return _run_tiles(x, None, block_n, k)[0]
+    _check_stage(_check(x, None, block_n), block_n, block_n, k)
+    return _run(x, None, _tile_launches(block_n, k))[0]
 
 
 def global_stage(x: torch.Tensor, j: int, k: int) -> torch.Tensor:
     """Kernel C: one cross-tile compare-exchange at distance ``j`` of stage
     ``k``; a group starting at i sorts up iff (i & k) == 0 (replaces the
     jnp-level ``global_stage``)."""
-    n = _check(x, None)
-    _check_stage(n, j, k)
-    if not _on_cuda(x):
-        return plain_global_stage(x, None, j, k)[0]
-    return _launch_global(x, None, j, j, k, 0)[0]
+    _check_stage(_check(x, None), j, j, k)
+    return _run(x, None, (("global", j, j, k, 0),))[0]
 
 
 def global_stages(x: torch.Tensor, j_hi: int, j_lo: int, k: int) -> torch.Tensor:
     """Kernel C over substages j_hi, j_hi/2, .., j_lo of stage ``k`` in one
     pass (at most ``GLOBAL_SPAN`` of them): ``global_stage`` at each in turn."""
-    n = _check(x, None)
-    _check_stage(n, j_hi, k, j_lo)
-    if not _on_cuda(x):
-        return plain_global_stages(x, None, j_hi, j_lo, k)[0]
-    return _launch_global(x, None, j_hi, j_lo, k, 0)[0]
+    _check_stage(_check(x, None), j_hi, j_lo, k)
+    return _run(x, None, (("global", j_hi, j_lo, k, 0),))[0]
 
 
 def block_sort_kv(x: torch.Tensor, r: torch.Tensor, block_n: int):
     """Kernel A-kv: kernel A on (key, int32 rank) pairs -> (keys, ranks)
     (replaces ``_block_sort_kv_kernel``)."""
     _check(x, r, block_n)
-    if not _on_cuda(x):
-        return plain_block_sort(x, r, block_n)
-    return _run_tiles(x, r, block_n, None)
+    return _run(x, r, _tile_launches(block_n, None))
 
 
 def block_merge_kv(x: torch.Tensor, r: torch.Tensor, block_n: int, k: int):
     """Kernel B-kv: kernel B on (key, int32 rank) pairs -> (keys, ranks)
     (replaces ``_block_merge_kv_kernel``)."""
-    n = _check(x, r, block_n)
-    _check_stage(n, block_n, k)
-    if not _on_cuda(x):
-        return plain_block_merge(x, r, block_n, k)
-    return _run_tiles(x, r, block_n, k)
+    _check_stage(_check(x, r, block_n), block_n, block_n, k)
+    return _run(x, r, _tile_launches(block_n, k))
 
 
 def global_stage_kv(x: torch.Tensor, r: torch.Tensor, j: int, k: int):
     """Kernel C-kv: kernel C on (key, int32 rank) pairs -> (keys, ranks)
     (replaces the jnp-level ``global_stage_kv``)."""
-    n = _check(x, r)
-    _check_stage(n, j, k)
-    if not _on_cuda(x):
-        return plain_global_stage(x, r, j, k)
-    return _launch_global(x, r, j, j, k, 0)
+    _check_stage(_check(x, r), j, j, k)
+    return _run(x, r, (("global", j, j, k, 0),))
 
 
 def global_stages_kv(x: torch.Tensor, r: torch.Tensor, j_hi: int, j_lo: int, k: int):
     """Kernel C-kv over substages j_hi .. j_lo of stage ``k`` in one pass ->
     (keys, ranks)."""
-    n = _check(x, r)
-    _check_stage(n, j_hi, k, j_lo)
-    if not _on_cuda(x):
-        return plain_global_stages(x, r, j_hi, j_lo, k)
-    return _launch_global(x, r, j_hi, j_lo, k, 0)
-
-
-def _check_merge(x: torch.Tensor, width: int) -> None:
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"unsupported key dtype {x.dtype}; expected one of {list(_DTYPE_CODE)}")
-    if x.dim() < 1 or not x.is_contiguous():
-        raise ValueError(f"keys must be contiguous with at least one axis, got shape {tuple(x.shape)}")
-    n = x.shape[-1]
-    if width < 1 or n % (2 * width) or (2 * width) % MERGE_TILE:
-        raise ValueError(f"merge_runs needs 2 * width a multiple of MERGE_TILE = {MERGE_TILE} "
-                         f"that divides the last axis, got width={width}, n={n}")
+    _check_stage(_check(x, r), j_hi, j_lo, k)
+    return _run(x, r, (("global", j_hi, j_lo, k, 0),))
 
 
 def merge_runs(x: torch.Tensor, width: int) -> torch.Tensor:
     """Kernel M: every pair of adjacent sorted runs of ``width`` keys along
-    the last axis merged into one run, in ``core.merge.sort_image`` order,
-    run a's key first on equal images; ``2 * width`` a multiple of
-    ``MERGE_TILE`` that divides the last axis.  On runs sorted on that image
-    the output is ``core.merge.rank_merge_pairs``', bit for bit (the
-    reference's jnp merge; M replaces no Pallas kernel).
+    the last axis merged into one run, in ``keys.sort_image`` order, run a's
+    key first on equal images; ``2 * width`` a multiple of ``MERGE_TILE``
+    that divides the last axis.  On runs sorted on that image the output is
+    ``core.merge.rank_merge_pairs``', bit for bit (the reference's jnp merge;
+    M replaces no Pallas kernel).
 
     >>> x = torch.cat([torch.arange(0, MERGE_TILE, 2), torch.arange(1, MERGE_TILE, 2)]).int()
     >>> torch.equal(merge_runs(x, MERGE_TILE // 2), torch.arange(MERGE_TILE, dtype=torch.int32))
     True
     """
-    _check_merge(x, width)
-    if not _on_cuda(x):
-        return plain_merge_runs(x, width)
-    _check_aligned(x)
-    out = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        # the entry point checks the geometry against the one it was built for
-        err = lib.bitonic_merge_runs(_DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), x.numel(),
-                                     width, MERGE_THREADS, MERGE_ELEMS, MERGE_PASSES, stream)
-    if err:
-        raise RuntimeError(f"bitonic_merge_runs failed: {lib.bitonic_error_string(err).decode()}")
-    merge_runs.launches += 1
-    return out
+    _check(x, None, width=width)
+    return _run(x, None, (("runs", width),))[0]
+
+
+def sort_rows(x: torch.Tensor, block_n: int, ranked: bool = False):
+    """The whole network of a sort of each row (``sort_launches``) on keys,
+    or where ``ranked`` on (key, int32 rank) pairs whose ranks start as
+    0 .. n-1 along each row -> (keys, ranks): the stable permutation."""
+    n = _check(x, None, block_n)
+    # the ranks are made in the call, so that nothing holds them after A-kv
+    return _run(x, torch.arange(n, dtype=torch.int32, device=x.device).expand(x.shape).contiguous()
+                if ranked else None, sort_launches(n, block_n))
 
 
 KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv, global_stage_kv,
@@ -588,27 +590,22 @@ KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv,
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset."""
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {fn.__name__: tally[fn.__name__] for fn in KERNELS}
 
 
 def substage_counts() -> dict:
     """Substages that C and C-kv launches ran since the last reset: over
     their ``launch_counts``, how many substages a pass took."""
-    return {fn.__name__: fn.substages for fn in (global_stage, global_stage_kv)}
+    return {"global_stage": tally["substages"], "global_stage_kv": tally["substages_kv"]}
 
 
 def merge_round_counts() -> dict:
     """Merge rounds on the card since the last reset: kernel M's launches and
     the rounds ``core.merge.merge_adjacent`` left to ``rank_merge_pairs``
     (narrower than a tile, with values, or of another dtype)."""
-    return {"merge_runs": merge_runs.launches, "rank_merge_pairs": merge_runs.plain_cuda_rounds}
+    return {"merge_runs": tally["merge_runs"], "rank_merge_pairs": tally["rank_merge_pairs"]}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-    global_stage.substages = global_stage_kv.substages = 0
-    merge_runs.plain_cuda_rounds = 0
-
-
-reset_launch_counts()
+    """Every count of ``tally`` back to 0."""
+    tally.clear()

@@ -10,6 +10,7 @@ sorts the last axis of any length >= 1: it pads to the next power of two with
                             registers (``global_spans``)
      j = block_n/2 .. 1   : kernel B (all of them in one pass, in registers)
 
+That launch sequence is ``bitonic_sort.sort_launches``, run by ``sort_rows``.
 Leading dims are rows of the kernel grid (the reference ``vmap``s its 1-D
 kernels over them instead).  ``kernel_argsort`` runs the same network on
 (key, rank) pairs — ranks never tie, so the permutation it returns (int32,
@@ -22,7 +23,7 @@ an order-preserving map and come back in their own dtype, bit for bit.
 
 ``block_n`` is the tile width: a power of two, clamped to the padded length
 (tiles above ``MAX_BLOCK_N`` are composed from launches at the cap).
-``kernel_argsort`` ranks float keys on ``core.merge.sort_image`` (int32,
+``kernel_argsort`` ranks float keys on ``keys.sort_image`` (int32,
 float16 and bfloat16 widened exactly): NaN of either sign is ``INT32_MAX``,
 which a pad (the same key at a rank >= n) follows, so the first n ranks are
 ``impl='xla'``'s permutation.  ``kernel_sort`` gives NaN keys unspecified
@@ -33,19 +34,10 @@ from __future__ import annotations
 import torch
 from torch.utils._pytree import tree_map
 
-from repro_torch.core.bitonic import next_pow2, sentinel_for
-from repro_torch.core.merge import sort_image
+from repro_torch.exchange.slabs import sentinel_for
+from repro_torch.keys import from_kernel_keys, sort_image, to_kernel_keys
 
-from .bitonic_sort import (
-    MAX_BLOCK_N,
-    block_merge,
-    block_merge_kv,
-    block_sort,
-    block_sort_kv,
-    global_spans,
-    global_stages,
-    global_stages_kv,
-)
+from .bitonic_sort import MAX_BLOCK_N, next_pow2, sort_rows
 
 __all__ = [
     "kernel_sort",
@@ -62,41 +54,12 @@ def _resolve_shape(n: int, block_n: int):
     """(padded length, effective block_n) for an arbitrary input length."""
     if block_n < 1 or block_n & (block_n - 1):
         raise ValueError(f"block_n={block_n} must be a power of two")
-    np2 = next_pow2(max(n, 1))
+    np2 = next_pow2(n)
     return np2, min(block_n, np2)
 
 
-_INT32_SIGN = -(1 << 31)
 # ranked on their int32 sort image by kernel_argsort
 _FLOAT_KEYS = (torch.float32, torch.float16, torch.bfloat16)
-# widened exactly: int32 keeps their order
-_WIDENED = (torch.int8, torch.uint8, torch.int16, torch.uint16)
-
-
-def _to_kernel_keys(x: torch.Tensor) -> torch.Tensor:
-    """Keys in a dtype the kernels take, in the same order: narrow integers
-    widened to int32, uint32 with its sign bit flipped and viewed as int32."""
-    if x.dtype in _WIDENED:
-        return x.to(torch.int32)
-    if x.dtype == torch.uint32:
-        return x.view(torch.int32) ^ _INT32_SIGN
-    if x.dtype == torch.bool:
-        raise TypeError("bool keys are not sorted: the reference's kernels reject them too")
-    if x.dtype in (torch.int64, torch.uint64, torch.float64):
-        raise TypeError(
-            f"{x.dtype} keys are not sorted: the reference runs with JAX's default of 32-bit "
-            "types (x64 off), so it has no 64-bit keys"
-        )
-    return x
-
-
-def _from_kernel_keys(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The inverse of ``_to_kernel_keys``."""
-    if dtype in _WIDENED:
-        return y.to(dtype)
-    if dtype == torch.uint32:
-        return (y ^ _INT32_SIGN).view(torch.uint32)
-    return y
 
 
 def _padded_rows(x: torch.Tensor, block_n: int):
@@ -110,43 +73,14 @@ def _padded_rows(x: torch.Tensor, block_n: int):
     if n < 1:
         raise ValueError("need at least one element to sort")
     np2, block_n = _resolve_shape(n, block_n)
-    rows = _to_kernel_keys(x.reshape(-1, n))
+    rows = to_kernel_keys(x.reshape(-1, n))
     if np2 != n:
-        fill = _to_kernel_keys(sentinel_for(x.dtype, largest=True)).item()
+        fill = to_kernel_keys(sentinel_for(x.dtype, largest=True)).item()
         rows = torch.cat([rows, rows.new_full((rows.shape[0], np2 - n), fill)], dim=-1)
     rows = rows.contiguous()
     if rows.is_cuda and rows.data_ptr() % 16:
         rows = rows.clone()
     return block_n, rows
-
-
-def _sort_rows(x: torch.Tensor, block_n: int) -> torch.Tensor:
-    """The network of the reference's ``_pallas_sort_impl``, its cross-tile
-    substages run a span at a time."""
-    n = x.shape[-1]
-    x = block_sort(x, block_n)
-    k = 2 * block_n
-    while k <= n:
-        for j_hi, j_lo in global_spans(k // 2, block_n):
-            x = global_stages(x, j_hi, j_lo, k)
-        x = block_merge(x, block_n, k)
-        k *= 2
-    return x
-
-
-def _argsort_rows(x: torch.Tensor, block_n: int):
-    """The network of the reference's ``_pallas_argsort_impl``, its
-    cross-tile substages run a span at a time."""
-    n = x.shape[-1]
-    r = torch.arange(n, dtype=torch.int32, device=x.device).expand(x.shape).contiguous()
-    x, r = block_sort_kv(x, r, block_n)
-    k = 2 * block_n
-    while k <= n:
-        for j_hi, j_lo in global_spans(k // 2, block_n):
-            x, r = global_stages_kv(x, r, j_hi, j_lo, k)
-        x, r = block_merge_kv(x, r, block_n, k)
-        k *= 2
-    return x, r
 
 
 def kernel_sort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.Tensor:
@@ -160,8 +94,8 @@ def kernel_sort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.Ten
     [1, 2, 3]
     """
     block_n, rows = _padded_rows(x, block_n)
-    out = _sort_rows(rows, block_n)
-    return _from_kernel_keys(out[:, : x.shape[-1]].reshape(x.shape), x.dtype)
+    out, _ = sort_rows(rows, block_n)
+    return from_kernel_keys(out[:, : x.shape[-1]].reshape(x.shape), x.dtype)
 
 
 def kernel_argsort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.Tensor:
@@ -180,7 +114,7 @@ def kernel_argsort(x: torch.Tensor, *, block_n: int = DEFAULT_BLOCK_N) -> torch.
     if x.dtype in _FLOAT_KEYS:
         x = sort_image(x)
     block_n, rows = _padded_rows(x, block_n)
-    _, perm = _argsort_rows(rows, block_n)
+    _, perm = sort_rows(rows, block_n, ranked=True)
     return perm[:, : x.shape[-1]].reshape(x.shape)
 
 

@@ -241,12 +241,42 @@ def test_tile_launches_above_the_cap():
     )
     assert kernels._tile_launches(1024, None) == (("sort", 1024, 2, 1024, 1024),)
     assert kernels._tile_launches(1024, 4096) == (("merge", 1024, 4096, 4096, 0),)
+    # a whole sort: the tile above the cap, then per stage C down to the tile
+    # and B on it, which above the cap is C down to the cap and B at the cap
+    assert kernels.sort_launches(256, 64, 16) == (
+        ("sort", 16, 2, 16, 64),
+        ("global", 16, 16, 32, 64), ("merge", 16, 32, 32, 64),
+        ("global", 32, 16, 64, 64), ("merge", 16, 64, 64, 64),
+        ("global", 64, 64, 128, 0), ("global", 32, 16, 128, 0), ("merge", 16, 128, 128, 0),
+        ("global", 128, 64, 256, 0), ("global", 32, 16, 256, 0), ("merge", 16, 256, 256, 0),
+    )
+    cap = kernels.MAX_BLOCK_N
+    assert kernels.sort_launches(8 * cap, 2 * cap) == (
+        kernels._tile_launches(2 * cap, None)
+        + (("global", 2 * cap, 2 * cap, 4 * cap, 0),) + kernels._tile_launches(2 * cap, 4 * cap)
+        + (("global", 4 * cap, 2 * cap, 8 * cap, 0),) + kernels._tile_launches(2 * cap, 8 * cap)
+    )
+    assert kernels.sort_launches(1024, 1024) == kernels._tile_launches(1024, None)
 
 
 def test_plain_versions_leave_launch_counts_alone():
     kernels.reset_launch_counts()
     kernels.block_sort(torch.zeros(64), 16)
     assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_counters_keep_their_keys_and_read_zero_after_a_reset():
+    kernels.tally.update(block_sort_kv=2, substages=3, merge_runs=1, rank_merge_pairs=4)
+    assert kernels.launch_counts()["block_sort_kv"] == 2
+    assert kernels.substage_counts()["global_stage"] == 3
+    assert kernels.merge_round_counts() == {"merge_runs": 1, "rank_merge_pairs": 4}
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts() == {
+        "block_sort": 0, "block_merge": 0, "global_stage": 0,
+        "block_sort_kv": 0, "block_merge_kv": 0, "global_stage_kv": 0, "merge_runs": 0,
+    }
+    assert kernels.substage_counts() == {"global_stage": 0, "global_stage_kv": 0}
+    assert kernels.merge_round_counts() == {"merge_runs": 0, "rank_merge_pairs": 0}
 
 
 # ------------------------------------------ kernel C's fused cross-tile pass ---
@@ -291,11 +321,13 @@ def test_plain_global_stages_equal_successive_substages(dtype, has_rank, span, f
     (8, 1 << 21, 21, 66),  # model B's tiles of a 10M sort
     (1, 1 << 24, 32, 105),  # the 10M argsort's row
     (1, 1 << 25, 36, 120),  # model D's 2 x 10^7-slot slab
+    (128, 1 << 18, 12, 36),  # the decode top-k's rows of 256,000 logits
 ])
 def test_global_spans_group_the_cross_tile_substages(rows, n, launches, substages):
     """Per stage k of a sort at block_n 1024, the spans cover j = k/2 ..
     block_n in order, at most GLOBAL_SPAN substages each, in ceil(d / span)
-    launches."""
+    launches; the sort's schedule is one A, those C launches and one B a
+    stage."""
     block_n, got, covered = 1024, 0, 0
     k = 2 * block_n
     while k <= n:
@@ -311,6 +343,11 @@ def test_global_spans_group_the_cross_tile_substages(rows, n, launches, substage
         got += len(spans)
         k *= 2
     assert (got, covered) == (launches, substages)
+    steps = kernels.sort_launches(n, block_n)
+    kinds = [kind for kind, *_ in steps]
+    assert (kinds.count("sort"), kinds.count("global"), kinds.count("merge")) == (
+        1, launches, n.bit_length() - block_n.bit_length())
+    assert sum(s[1].bit_length() - s[2].bit_length() + 1 for s in steps if s[0] == "global") == substages
 
 
 @pytest.mark.parametrize("block_n", [16, 1024])

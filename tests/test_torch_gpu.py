@@ -112,7 +112,7 @@ def test_global_stages_kernel_takes_parity_masks_and_refuses_long_spans(cuda, dt
     r = torch.randperm(n, generator=torch.Generator().manual_seed(11), dtype=torch.int32)
     r = r.expand(2, n).contiguous()
     for k in (w // 2, w):
-        got, got_r = kernels._launch_global(x.to(cuda), r.to(cuda), k // 2, k // 16, k, w)
+        got, got_r = kernels._run(x.to(cuda), r.to(cuda), (("global", k // 2, k // 16, k, w),))
         want, want_r = kernels.plain_global_stages(x, r, k // 2, k // 16, k, w)
         _assert_same_bits(got, want)
         assert torch.equal(got_r.cpu(), want_r)
@@ -120,7 +120,7 @@ def test_global_stages_kernel_takes_parity_masks_and_refuses_long_spans(cuda, dt
     with pytest.raises(ValueError):
         kernels.global_stages(x.to(cuda), 2 << span, 2, n)
     with pytest.raises(RuntimeError, match="invalid argument"):
-        kernels._launch_global(x.to(cuda), None, 2 << span, 2, n, 0)
+        kernels._run(x.to(cuda), None, (("global", 2 << span, 2, n, 0),))
 
 
 def test_sort_and_argsort_fuse_the_cross_tile_substages(cuda):
@@ -318,13 +318,23 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("plain version called on a CUDA tensor")
 
-    for name in ("plain_block_sort", "plain_block_merge", "plain_global_stage"):
+    # the public plain versions, and the ones the launch path runs on a CPU tensor
+    for name in ("plain_block_sort", "plain_block_merge", "plain_global_stage",
+                 "_plain_tile", "plain_global_stages", "plain_merge_runs"):
         monkeypatch.setattr(kernels, name, refuse)
     x = _keys(torch.int32, (50_000,), seed=1).to(cuda)
     vals, idx = engine.topk(x, 10, impl="kernel", block_n=1024)
     want_v, _ = torch.topk(x.cpu(), 10)
     assert torch.equal(vals.cpu(), want_v)
     assert torch.equal(ops.kernel_sort(x).cpu(), torch.sort(x.cpu()).values)
+    # a merge round that kernel M takes
+    tile = kernels.MERGE_TILE
+    y = merge_keys("ties", torch.float32, (2, 4 * tile), tile, seed=9)
+    _assert_same_bits(merge.merge_adjacent(y.to(cuda), tile), rank_merge(y, tile))
+    counts = kernels.launch_counts()
+    assert all(counts[name] for name in ("block_sort", "block_merge", "global_stage",
+                                         "block_sort_kv", "block_merge_kv", "global_stage_kv"))
+    assert counts["merge_runs"] == 1
 
 
 def test_block_n_above_the_cap_is_composed(cuda):

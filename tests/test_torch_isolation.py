@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` imports neither ``jax`` nor
 ``repro``, and its front doors never fall back to the CPU on their own."""
+import ast
 import os
 import re
 import subprocess
@@ -41,6 +42,29 @@ def test_import_loads_no_jax_and_no_reference_module():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_layers_import_only_downward():
+    """``repro_torch.keys`` loads nothing of the package, and the kernels
+    load ``keys``, ``exchange`` and ``tracing`` but no sort model and no
+    engine: imports point from ``engine`` to ``core`` to ``kernels``."""
+    code = (
+        "import sys, importlib\n"
+        "def loaded(name):\n"
+        "    before = set(sys.modules)\n"
+        "    importlib.import_module(name)\n"
+        "    return sorted(m for m in set(sys.modules) - before if m.startswith('repro_torch'))\n"
+        "print(loaded('repro_torch.keys'))\n"
+        "print(loaded('repro_torch.kernels.bitonic_sort'))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    keys, kernels = (ast.literal_eval(line) for line in out.stdout.strip().splitlines())
+    assert keys == ["repro_torch", "repro_torch.keys"]
+    assert "repro_torch.kernels.bitonic_sort.bitonic_sort" in kernels
+    assert [m for m in kernels if m.startswith(("repro_torch.core", "repro_torch.engine"))] == []
 
 
 def test_every_module_imports_without_jax_or_the_reference():

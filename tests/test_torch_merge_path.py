@@ -121,6 +121,15 @@ def test_merge_runs_refuses_what_kernel_m_does_not_take():
         kernels.merge_runs(torch.zeros(2 * TILE, 2).t(), TILE)
 
 
+class _OnTheCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, so that ``merge_adjacent``
+    routes its round as it would there."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
 @pytest.mark.parametrize("dtype,width,values,takes", [
     (torch.float32, TILE // 2, None, True),
     (torch.bfloat16, 1 << 23, None, True),
@@ -130,9 +139,33 @@ def test_merge_runs_refuses_what_kernel_m_does_not_take():
     (torch.float64, TILE, None, False),
     (torch.float32, TILE, {"i": None}, False),  # the values path
 ])
-def test_merge_adjacent_routes_rounds_to_kernel_m(dtype, width, values, takes):
-    # the rule a round on the card is routed by; on the CPU every round is the rank merge
-    assert merge._kernel_m_takes(dtype, width, values) is takes
+def test_merge_adjacent_routes_rounds_to_kernel_m(dtype, width, values, takes, monkeypatch):
+    # merge_adjacent on a round it takes to be on the card: keys only that
+    # kernel M's rule takes go to merge_runs, every other round to the rank
+    # merge, counted; the wrapper refuses the widths the rule refuses
+    calls = []
+
+    def spy_m(x, w):
+        calls.append("merge_runs")
+        return x
+
+    def spy_rank(pairs, vals=None):
+        calls.append("rank_merge_pairs")
+        out = pairs.reshape(*pairs.shape[:-2], -1)
+        return out if vals is None else (out, {k: v.reshape(out.shape) for k, v in vals.items()})
+
+    monkeypatch.setattr(merge, "merge_runs", spy_m)
+    monkeypatch.setattr(merge, "rank_merge_pairs", spy_rank)
+    x = torch.empty(2 * width, dtype=dtype).as_subclass(_OnTheCard)
+    if values is not None:
+        values = {"i": torch.empty(2 * width, dtype=torch.int32)}
+    kernels.reset_launch_counts()
+    merge.merge_adjacent(x, width, values)
+    assert calls == ["merge_runs" if takes else "rank_merge_pairs"]
+    assert kernels.merge_round_counts() == {"merge_runs": 0, "rank_merge_pairs": int(not takes)}
+    if values is None and dtype in kernels.KEY_DTYPES and not takes:
+        with pytest.raises(ValueError, match="MERGE_TILE"):
+            kernels.merge_runs(torch.zeros(2 * width, dtype=dtype), width)
 
 
 def test_merge_adjacent_keeps_the_rank_merge_off_the_card(monkeypatch):

@@ -422,6 +422,7 @@ def test_planner_for_the_card_with_no_card_raises(monkeypatch):
     "repro_torch.engine.cache", "repro_torch.engine.planner", "repro_torch.engine.service",
     "repro_torch.engine.queue", "repro_torch.engine.frontend.warmup",
     "repro_torch.engine.frontend.scheduler", "repro_torch.engine.frontend.loadgen",
+    "repro_torch.keys",
 ])
 def test_doctests_run_on_the_cpu(module):
     result = doctest.testmod(importlib.import_module(module))
