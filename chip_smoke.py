@@ -27,7 +27,15 @@ csrc`` with nvcc (into ``build/``), and prints one JSON line per phase:
   argsort  argsort / sort_kv of 10,000,000 duplicate-heavy int32 keys
            against torch.sort(stable=True), with an (n, 4) float32 payload
   topk     top-50 of (8, 151936) float32 logits with ties put in on purpose,
-           impl="kernel" against impl="xla"
+           impl="kernel" (kernel T, two launches) against impl="xla"
+  topk_select  kernel T at the decode cell's shape, (128, 256000) float32
+           logits rounded to bfloat16, k = 50, both directions: bit for bit
+           against its plain version and impl="xla", two launches a call;
+           ms per call over a pool of 4 batches (no call finds its logits in
+           L2) beside the 0.039 ms byte bound, each launch's device ms, the
+           plain version's ms, torch.topk's (library_ms, never called by the
+           port), the whole engine.topk call's, the kv network it replaced,
+           host ms a call and the call's peak memory
   cluster  model D (cluster_sort, local_impl="kernel", block_n 1024) on a
            one-rank NCCL group: 10,000,000 float32 keys in modes splitters,
            sample and radix, and 10,000,000 int32 keys in [0, 10^7) in the
@@ -241,6 +249,8 @@ TENANTS = (("web", 3.0, 0, 40.0), ("batch", 1.0, 1, 200.0))  # name, weight, pri
 TRACE = dict(duration_s=5.0, rates={"web": 200.0, "batch": 50.0}, zipf_a=1.2, seed=11)
 OVERLOAD = 20  # the second replay's rate multiple
 NAN_N = 1_000_003  # nan_merge: keys holding NaN, +-inf and +-0.0
+# topk_select: the decode cell's shape (sortbench/configs/topk_cmdr256k.json)
+TOPK_ROWS, TOPK_VOCAB, TOPK_K, TOPK_POOL = 128, 256_000, 50, 4
 IMAGE_PAIRS = 12  # nan_merge: alternating timings of the kernel argsort with / without the image
 # lm_serve: the slice's main path, qwen3-0.6b at full size, decoding
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TOPK = "qwen3-0.6b", 8, 128, 16, 16
@@ -533,6 +543,7 @@ def launch_host_us(kernels, device, calls: int = 200) -> dict:
         "block_sort_kv": lambda: kernels.block_sort_kv(x, r, bn),
         "block_merge_kv": lambda: kernels.block_merge_kv(x, r, bn, n),
         "global_stage_kv": lambda: kernels.global_stage_kv(x, r, n // 2, n),
+        "topk_select": lambda: kernels.topk_select(x, 50),
     }
     out = {}
     for name, fn in runs.items():
@@ -1183,6 +1194,59 @@ def phase_nan_merge(kernels, device, add, n=NAN_N) -> dict:
                           "reps": 20}
     return {"n": n, "dtype": "float32", "nan_in": int(torch.isnan(x).sum()), "results": out,
             "no_device_assert": True, "argsort_kernel_equal_xla": True}
+
+
+def phase_topk_select(kernels, device, gen) -> dict:
+    """Kernel T at the decode cell's shape (see the module docstring)."""
+    from repro_torch import engine
+    from repro_torch.engine.kv import _order_keys
+
+    pool = [(torch.randn(TOPK_ROWS, TOPK_VOCAB, generator=gen, device=device) * 3.0)
+            .to(torch.bfloat16).float() for _ in range(TOPK_POOL)]
+    x = pool[0]
+    for largest in (True, False):
+        (vals, idx), counts = counted(kernels, lambda: engine.topk(x, TOPK_K, largest=largest,
+                                                                   impl="kernel"))
+        check(counts == {"topk_select": 2}, f"topk_select launches {counts}")
+        check(torch.equal(idx, kernels.plain_topk_select(x, TOPK_K, largest)),
+              f"topk_select largest={largest}: differs from its plain version")
+        want_vals, want_idx = engine.topk(x, TOPK_K, largest=largest, impl="xla")
+        check(torch.equal(idx, want_idx) and same_bits(vals, want_vals),
+              f"topk_select largest={largest}: differs from impl='xla'")
+    turn = iter(range(1 << 62))
+
+    def over_pool(fn):
+        return lambda: fn(pool[next(turn) % TOPK_POOL])
+
+    # the logits read once, k int32 indices a row written once
+    bound_ms = (x.numel() * 4 + TOPK_ROWS * TOPK_K * 4) / HBM_BYTES_PER_S * 1e3
+    ms = time_ms(over_pool(lambda b: kernels.topk_select(b, TOPK_K)), reps=100)
+    launches = device_profile(over_pool(lambda b: kernels.topk_select(b, TOPK_K)))
+    host = []
+    for i in range(200):  # the card idle at each call's start
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.topk(pool[i % TOPK_POOL], TOPK_K, impl="kernel")
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.topk(x, TOPK_K, impl="kernel")
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated() - before
+    return {"shape": [TOPK_ROWS, TOPK_VOCAB], "k": TOPK_K, "pool": TOPK_POOL, "launches": counts,
+            "equal_plain": True, "equal_impl_xla": True,
+            "geometry": kernels.select_geometry(TOPK_ROWS, TOPK_VOCAB, TOPK_K),
+            "ms": ms, "bound_ms": bound_ms, "share": bound_ms / ms, "reps": 100,
+            "launch_device_ms": launches["top"], "device_ms": launches["device_ms"],
+            "plain_ms": time_ms(lambda: kernels.plain_topk_select(x, TOPK_K, True), reps=1, warmup=1),
+            "library_ms": time_ms(over_pool(lambda b: torch.topk(b, TOPK_K)), reps=20),
+            "call_ms": time_ms(over_pool(lambda b: engine.topk(b, TOPK_K, impl="kernel")), reps=100),
+            "kv_network_ms": time_ms(over_pool(lambda b: _order_keys(b, ascending=False,
+                                                                     impl="kernel")), reps=5),
+            "host_ms_per_call": {"median": float(np.median(host)), "min": min(host),
+                                 "max": max(host), "calls": len(host)},
+            "call_peak_bytes": call_peak}
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2703,7 +2767,7 @@ def main() -> None:
     logits[:, 151_935] = 50.0  # a tie at the top, far apart
     (vals, tidx), counts = counted(kernels, lambda: engine.topk(logits, 50, impl="kernel"))
     add(counts)
-    check(counts == expected_launches(VOCAB, 1024, kv=True), f"topk launches {counts}")
+    check(counts == {"topk_select": 2}, f"topk launches {counts}")
     want_vals, want_tidx = engine.topk(logits, 50, impl="xla")
     check(torch.equal(vals, want_vals), "topk: values differ from impl='xla'")
     check(tidx.dtype == want_tidx.dtype == torch.int32 and torch.equal(tidx, want_tidx),
@@ -2712,6 +2776,8 @@ def main() -> None:
     check(tidx[0, 0].item() == 12 and tidx[0, 1].item() == 151_935, "topk: lowest index wins a tie")
     emit({"phase": "topk", "shape": [8, VOCAB], "k": 50, "launches": counts,
           "equal_impl_xla": True})
+    topk_select = phase_topk_select(kernels, device, gen)
+    emit({"phase": "topk_select", **topk_select})
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
 
@@ -2881,6 +2947,14 @@ def main() -> None:
         "share": widest["share"], "library_ms": None,
         "rank_merge_pairs_ms": widest["rank_merge_pairs_ms"], "shape": widest["shape"],
         "width": 1 << 23, "dtype": "float32", "reps": 20, "plain_reps": 3,
+    })
+    entries.append({
+        "name": "topk_select", "route": "cuda", "source": SOURCE,
+        "replaces": "none: the reference sorts each row whole (src/repro/engine/kv.py topk)",
+        "launches": launches["topk_select"], "max_abs_err": 0.0, "ms": topk_select["ms"],
+        "plain_ms": topk_select["plain_ms"], "bound_ms": topk_select["bound_ms"],
+        "bound_by": "bytes", "share": topk_select["share"], "library_ms": topk_select["library_ms"],
+        "shape": topk_select["shape"], "k": TOPK_K, "dtype": "float32", "reps": 100, "plain_reps": 1,
     })
     # the top-k row shape, for the kv kernels' second main-path use
     tk_keys = make_keys(torch.float32, (8, 1 << 18), gen, device)

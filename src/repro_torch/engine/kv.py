@@ -4,9 +4,11 @@ Counterpart of ``repro/engine/kv.py``.  On one device (``mesh=None``) every
 call sorts the last axis, with any leading batch dims, through a stable
 argsort and gathers by it: ``impl='xla'`` is ``torch.sort(stable=True)``,
 ``impl='kernel'`` the hand-written CUDA (key, rank) network; both return
-int32 indices, as the reference's ``jnp.argsort`` does.  ``values`` is any
-nest of dicts, lists and tuples (the reference's pytree) of tensors shaped
-like the keys plus optional trailing dims.
+int32 indices, as the reference's ``jnp.argsort`` does.  ``topk`` with
+``impl='kernel'`` selects instead where kernel T takes the call
+(``ops.topk_takes``): the same indices from one read of each row.
+``values`` is any nest of dicts, lists and tuples (the reference's pytree)
+of tensors shaped like the keys plus optional trailing dims.
 
 With ``mesh=`` (an ``AxisGroup`` or a ``ProcessGroup``) the records ride
 model D's exchange (``cluster_sort_kv``): every rank passes its shard and
@@ -41,7 +43,12 @@ from repro_torch.exchange import (
     slab_geometry,
     slab_valid,
 )
-from repro_torch.kernels.bitonic_sort.ops import DEFAULT_BLOCK_N, kernel_argsort
+from repro_torch.kernels.bitonic_sort.ops import (
+    DEFAULT_BLOCK_N,
+    kernel_argsort,
+    kernel_topk,
+    topk_takes,
+)
 from repro_torch.keys import int_bits, rev_key, sort_image
 from repro_torch.tracing import span
 
@@ -77,7 +84,9 @@ def _order_keys(
 def _gather_last(v: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     """Index ``v`` (shaped like keys + optional trailing dims) by ``order``."""
     extra = v.dim() - order.dim()
-    idx = order.long().reshape(order.shape + (1,) * extra).expand(order.shape + v.shape[order.dim():])
+    idx = order.long()
+    if extra:
+        idx = idx.reshape(order.shape + (1,) * extra).expand(order.shape + v.shape[order.dim():])
     if v.dtype.is_floating_point:  # as floats, so gradients flow (the MoE router's top-k values)
         return torch.gather(v, order.dim() - 1, idx)
     return torch.gather(int_bits(v), order.dim() - 1, idx).view(v.dtype)
@@ -285,10 +294,13 @@ def topk(
     block_n: Optional[int] = None,
     device="cuda",
 ):
-    """Top-k (values, indices) along the last axis via the stable argsort.
+    """Top-k (values, indices) along the last axis: the first k of the
+    stable argsort.
 
-    Ties go to the lowest index (``jax.lax.top_k``'s rule), for
-    ``impl='kernel'`` too, since its (key, rank) comparator is stable.
+    Ties go to the lowest index (``jax.lax.top_k``'s rule).  ``impl='kernel'``
+    selects them with kernel T where ``ops.topk_takes`` the call (its dtypes,
+    ``k <= SELECT_MAX_K``), and otherwise takes them from the kernels' stable
+    (key, rank) network, which ``block_n`` tiles.
 
     >>> vals, idx = topk(torch.tensor([1.0, 9.0, 4.0]), 2)
     >>> vals.tolist(), idx.tolist()
@@ -296,6 +308,10 @@ def topk(
     """
     with span("repro_torch.topk"):
         x = as_tensor(x, device)
-        top_idx = _order_keys(x, ascending=not largest, impl=impl, block_n=block_n)[..., :k].to(torch.int32)
+        if impl == "kernel" and topk_takes(x, k):
+            with span("repro_torch.kv.order", device=x):
+                top_idx = kernel_topk(x, k, largest=largest)
+        else:
+            top_idx = _order_keys(x, ascending=not largest, impl=impl, block_n=block_n)[..., :k].to(torch.int32)
         with span("repro_torch.kv.gather", device=x):
             return _gather_last(x, top_idx), top_idx

@@ -16,6 +16,8 @@ loads it with ``ctypes``, and wraps each kernel:
   M     merge_runs                         one round of model B's merge tree:
                                            adjacent sorted runs merged stably
                                            on ``keys.sort_image``
+  T     topk_select                        the top-k of each row by selection:
+                                           its k least items (``select_items``)
 
 A and B are one CUDA kernel body (``tile_network``) that holds a tile in
 registers and runs stages k_first .. k_last of it (``_tile_geometry``).  C
@@ -25,6 +27,10 @@ memory each, instead of one a substage.  M is a merge path over output tiles
 of ``MERGE_THREADS * MERGE_ELEMS`` keys, ``MERGE_PASSES`` of them
 (``MERGE_TILE`` keys) a block; ``merge_runs_takes`` is the rule for the
 rounds it takes, by which ``core.merge.merge_adjacent`` routes them to it.
+T reads each row once in segments of ``select_geometry`` (a block a segment,
+each warp keeping the least items it has seen) and merges a row's segment
+lists in a second launch; ``ops.topk_takes`` is the rule by which
+``engine.topk`` routes a call to it.
 
 Every launch is a step of a schedule: ``_tile_launches`` for kernel A or B at
 one tile width, ``sort_launches`` for the whole network of a sort.  The
@@ -34,7 +40,9 @@ wrappers and ``sort_rows`` check their input once (``_check``, and
 tensor it launches each step through ``_launch`` and counts it in ``tally``
 (``launch_counts``, ``substage_counts``, ``merge_round_counts``); on a CPU
 tensor it runs the plain torch version, which repeats the kernel's
-arithmetic step by step.
+arithmetic step by step.  T, whose two launches are of other shapes than
+the networks' steps, launches through ``_launch`` from its own wrapper and
+counts there.
 
 Every network wrapper takes a contiguous tensor whose last axis (length n, a
 power of two) is sorted row by row; the leading dims are rows of the kernel grid.  The
@@ -91,6 +99,11 @@ __all__ = [
     "plain_merge_runs",
     "merge_round_counts",
     "merge_runs_takes",
+    "SELECT_MAX_K",
+    "select_geometry",
+    "select_items",
+    "topk_select",
+    "plain_topk_select",
     "sort_launches",
     "sort_rows",
     "tally",
@@ -112,6 +125,16 @@ KEY_DTYPES = tuple(_DTYPE_CODE)
 MERGE_THREADS, MERGE_ELEMS, MERGE_PASSES = 256, 16, 2
 MERGE_TILE = MERGE_THREADS * MERGE_ELEMS * MERGE_PASSES  # output keys a block of M writes
 _SPLIT_PROBES = 32  # M's tile-edge search: one probe a lane of a warp
+# kernel T (csrc: kSelect*): a warp's list holds the least 64, 128 or 256
+# items it has seen, the least of these lengths >= k
+_SELECT_LISTS = (64, 128, 256)
+SELECT_MAX_K = _SELECT_LISTS[-1]
+_SELECT_MIN_SEGMENT = 8192  # keys a block scans at the least: 1,024 a warp
+# first-launch blocks a call aims at, about two a SM of an H100's 132: every
+# warp's list takes some k (1 + ln(keys / k)) items, so few long segments
+# do the least work while the loads still fill the card
+_SELECT_BLOCKS = 256
+_SELECT_MAX_SEGMENTS = 64  # the second launch merges at most 64 lists a row
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "bitonic_sort.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
@@ -158,7 +181,9 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.bitonic_global_stage.argtypes = [i32, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr]
     lib.bitonic_merge_runs.argtypes = [i32, ptr, ptr, i64, i64, i32, i32, i32, ptr]
-    for fn in (lib.bitonic_tile_network, lib.bitonic_global_stage, lib.bitonic_merge_runs):
+    lib.bitonic_topk_select.argtypes = [i32, ptr, ptr, ptr, i64, i64, i32, i32, i32, i32, ptr]
+    for fn in (lib.bitonic_tile_network, lib.bitonic_global_stage, lib.bitonic_merge_runs,
+               lib.bitonic_topk_select):
         fn.restype = i32
     lib.bitonic_error_string.argtypes = [i32]
     lib.bitonic_error_string.restype = ctypes.c_char_p
@@ -365,6 +390,36 @@ def plain_merge_runs(x, width: int, threads: int = MERGE_THREADS, elems: int = M
     return torch.stack(out, dim=-1).reshape(shape).view(x.dtype)
 
 
+def select_items(x, largest: bool):
+    """Kernel T's items of keys ``x`` (a dtype the kernels take), as int64:
+    the order key in the upper 32 bits, signed, the index along the last axis
+    below.  The key is ``keys.sort_image`` of the key, or for the largest
+    keys its reverse (-1 - image), NaN of either sign last in both; so the
+    ascending items are ``topk``'s order, ties to the lowest index, and no two
+    tie.  (The kernel holds the key in unsigned order, 2^31 above this.)"""
+    key = sort_image(x).to(torch.int64)
+    if largest:
+        reverse = -1 - key
+        key = torch.where(torch.isnan(x), key, reverse) if x.dtype.is_floating_point else reverse
+    return key * (1 << 32) + torch.arange(x.shape[-1], device=x.device)
+
+
+def plain_topk_select(x, k: int, largest: bool = True):
+    """Kernel T in plain torch, on any device -> int32 indices (leading
+    dims, k): the k least ``select_items`` of each row, least first, by the
+    plain network over the row padded to a power of two with the greatest
+    int64, which no item reaches.  The kernel's segments and lists select
+    the same k, since no two items tie."""
+    n = x.shape[-1]
+    items = select_items(x, largest).reshape(-1, n)
+    np2 = next_pow2(n)
+    if np2 != n:
+        items = torch.cat([items, items.new_full((items.shape[0], np2 - n), torch.iinfo(torch.int64).max)],
+                          dim=-1)
+    items, _ = _plain_tile(items, None, np2, 2, np2, np2)
+    return (items[:, :k] & 0xFFFFFFFF).to(torch.int32).reshape(x.shape[:-1] + (k,))
+
+
 def global_spans(j_hi: int, j_lo: int) -> tuple:
     """The launches of kernel C that run the substages j_hi, j_hi/2, .., j_lo
     of one stage: ``(j_hi, j_lo)`` of each, in order, ceil(d / GLOBAL_SPAN) of
@@ -447,6 +502,17 @@ def _check(x, r, block_n=None, width=None) -> int:
     if block_n is not None and not (_is_pow2(block_n) and block_n <= n):
         raise ValueError(f"block_n={block_n} must be a power of two <= n={n}")
     return n
+
+
+@functools.cache
+def select_geometry(rows: int, n: int, k: int) -> tuple:
+    """Kernel T's ``(segments a row, list length)`` for ``rows`` rows of
+    ``n`` keys: the least list of ``_SELECT_LISTS`` that holds k; segments of
+    at least ``_SELECT_MIN_SEGMENT`` keys, as many as bring the first launch
+    to ``_SELECT_BLOCKS`` blocks, at most ``_SELECT_MAX_SEGMENTS``."""
+    list_len = next(m for m in _SELECT_LISTS if k <= m)
+    segments = min(-(-n // _SELECT_MIN_SEGMENT), -(-_SELECT_BLOCKS // max(rows, 1)), _SELECT_MAX_SEGMENTS)
+    return max(1, segments), list_len
 
 
 def _check_stage(n: int, j_hi: int, j_lo: int, k: int) -> None:
@@ -574,6 +640,37 @@ def merge_runs(x: torch.Tensor, width: int) -> torch.Tensor:
     return _run(x, None, (("runs", width),))[0]
 
 
+def topk_select(x: torch.Tensor, k: int, largest: bool = True) -> torch.Tensor:
+    """Kernel T: int32 indices (leading dims, k) of the k best keys of each
+    row along the last axis, best first: the k least ``select_items``, so
+    NaN of either sign last, -0.0 tied with +0.0 and ties to the lowest
+    index, as ``engine.topk`` orders them.  ``x`` is contiguous, of a dtype
+    the kernels take, at any alignment, with 1 <= k <= min(n, SELECT_MAX_K)
+    and n < 2^31.  One launch, or two where a row has several segments
+    (``select_geometry``), each counted on ``topk_select``."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported key dtype {x.dtype}; expected one of {list(_DTYPE_CODE)}")
+    if x.dim() < 1 or not x.is_contiguous():
+        raise ValueError(f"keys must be contiguous with at least one axis, got shape {tuple(x.shape)}")
+    n = x.shape[-1]
+    if not 1 <= k <= min(n, SELECT_MAX_K) or n >= 1 << 31:
+        raise ValueError(f"topk_select needs 1 <= k <= min(n, {SELECT_MAX_K}) and n < 2^31, "
+                         f"got k={k}, n={n}")
+    if not _on_cuda(x):
+        return plain_topk_select(x, k, largest)
+    rows = x.numel() // n
+    segments, list_len = select_geometry(rows, n, k)
+    out = torch.empty(x.shape[:-1] + (k,), dtype=torch.int32, device=x.device)
+    lists = None if segments == 1 else torch.empty(rows * segments * list_len, dtype=torch.int64,
+                                                   device=x.device)
+    with torch.cuda.device(x.device):
+        _launch("bitonic_topk_select", _DTYPE_CODE[x.dtype], x.data_ptr(),
+                None if lists is None else lists.data_ptr(), out.data_ptr(), rows, n, segments,
+                list_len, k, int(largest), torch.cuda.current_stream(x.device).cuda_stream)
+    tally["topk_select"] += 1 if segments == 1 else 2
+    return out
+
+
 def sort_rows(x: torch.Tensor, block_n: int, ranked: bool = False):
     """The whole network of a sort of each row (``sort_launches``) on keys,
     or where ``ranked`` on (key, int32 rank) pairs whose ranks start as
@@ -585,7 +682,7 @@ def sort_rows(x: torch.Tensor, block_n: int, ranked: bool = False):
 
 
 KERNELS = (block_sort, block_merge, global_stage, block_sort_kv, block_merge_kv, global_stage_kv,
-           merge_runs)
+           merge_runs, topk_select)
 
 
 def launch_counts() -> dict:

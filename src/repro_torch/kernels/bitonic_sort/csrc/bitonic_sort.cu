@@ -108,6 +108,35 @@
 //   The splits are clamped so that every slice stays inside its run whatever
 //   the keys: runs that are not sorted (NaN out of the networks) give
 //   unspecified output, never an access out of bounds.
+//
+// T (select_segments_kernel, select_merge_kernel): the top-k of each row, the
+//   k least items (key, index) as one 64-bit word, the order key above the
+//   index: the key is the image above (merge_image) in unsigned order, and for
+//   the largest keys its complement, NaN of either sign staying last.  Items
+//   never tie, so the k least are the stable top-k of engine/kv.py:topk (ties to
+//   the lowest index).  It replaces no Pallas kernel: the reference, and the
+//   port before it, sorted the whole row padded to a power of two through the kv
+//   network (21 launches at 128 x 256,000) to keep k of each row.  Bound: the
+//   keys read once, 128 x 256,000 float32 in 0.039 ms at 3.35 TB/s; the answer
+//   is k int32 a row.  Design: a first launch cuts each row into segments, a
+//   block of 8 warps a segment, the warps taking its 16-byte words in turn, each
+//   lane testing U of them while its next U load.  A warp keeps the L least
+//   items it has seen (L = 64, 128 or 256 >= k, sorted, strided over the lanes
+//   in registers) and a bound: the least k-th item of any warp of the block, in
+//   shared memory.  A key is formed in registers and compared with the bound;
+//   what passes goes to a warp queue in shared memory (ballot and popc), and
+//   each 32 queued items are sorted by a warp bitonic network and merged into
+//   the list (a min against the list's last 32, then a bitonic merge).  After
+//   the first few words of a segment almost no key passes; a warp's list takes
+//   some k (1 + ln(keys / k)) items in all, so the launch runs few long segments
+//   (bitonic_sort.py:select_geometry).  The warps' lists are merged pairwise
+//   into the block's (min of one list against the other reversed, then a bitonic
+//   merge), and the block writes it to a scratch of rows x segments x L items; a
+//   second launch merges a row's segment lists the same way and writes the first
+//   k indices.  A row of one segment takes the first launch alone.  A key that
+//   fails the bound has k lesser items in some warp's list, and a list drops
+//   only items with L >= k lesser ones, so no item of the answer is ever
+//   dropped.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -747,6 +776,259 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------- kernel T ---
+constexpr int kSelectThreads = 256;  // bitonic_sort.py: SELECT_THREADS
+constexpr int kSelectWarps = kSelectThreads / 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
+// One item: the order key in the upper 32 bits, the index (below 2^31) in the
+// lower.  kNoItem fills a list's empty slots and follows every item.
+using Item = unsigned long long;
+constexpr Item kNoItem = ~Item{0};
+
+// The order key of a raw key: topk's order ascending in unsigned compares.
+template <typename T>
+__device__ __forceinline__ uint32_t select_key(typename KeyBits<T>::U u, bool largest) {
+  const uint32_t a = uint32_t(merge_image<T>(u)) ^ 0x80000000u;
+  if constexpr (std::is_same_v<T, int32_t>) {
+    return largest ? ~a : a;
+  } else {
+    return largest && a != 0xffffffffu ? ~a : a;  // NaN (image INT32_MAX) stays last
+  }
+}
+
+__device__ __forceinline__ Item select_item(uint32_t key, int64_t index) {
+  return (Item{key} << 32) | uint32_t(index);
+}
+
+// The V keys of a 16-byte word, in memory order.
+template <typename K, int V>
+__device__ __forceinline__ void unpack_word(const uint4& w, K (&k)[V]) {
+  const uint32_t word[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    if constexpr (sizeof(K) == 4) {
+      k[i] = word[i];
+    } else {
+      k[i] = static_cast<K>(word[i / 2] >> (16 * (i % 2)));
+    }
+  }
+}
+
+// Sorts a bitonic sequence of R * 32 items ascending; item r * 32 + lane is v[r].
+template <int R>
+__device__ __forceinline__ void merge_bitonic(Item (&v)[R], int lane) {
+#pragma unroll
+  for (int m = R / 2; m >= 1; m >>= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if ((r & m) == 0) {
+        const Item a = v[r], b = v[r + m];
+        v[r] = a < b ? a : b;
+        v[r + m] = a < b ? b : a;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 16; j >= 1; j >>= 1) {
+    const bool lower = (lane & j) == 0;  // the lower lane of a pair keeps the lesser
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const Item o = __shfl_xor_sync(kFullWarp, v[r], j);
+      v[r] = (v[r] < o) == lower ? v[r] : o;
+    }
+  }
+}
+
+// The 32 items of a warp, one a lane, sorted ascending across the lanes.
+__device__ __forceinline__ Item warp_sort(Item v, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k / 2; j >= 1; j >>= 1) {
+      const Item o = __shfl_xor_sync(kFullWarp, v, j);
+      const bool keep_lesser = ((lane & j) == 0) == ((lane & k) == 0);
+      v = (v < o) == keep_lesser ? v : o;
+    }
+  }
+  return v;
+}
+
+// The list (sorted, R * 32 items) becomes the least R * 32 of it and the
+// warp's 32 items c: against the list's last 32 items, c in descending order
+// leaves a bitonic sequence of the least.
+template <int R>
+__device__ __forceinline__ void list_insert(Item (&v)[R], Item c, int lane) {
+  const Item back = __shfl_xor_sync(kFullWarp, warp_sort(c, lane), 31);
+  v[R - 1] = back < v[R - 1] ? back : v[R - 1];
+  merge_bitonic<R>(v, lane);
+}
+
+// Item i of the list, on every lane.
+template <int R>
+__device__ __forceinline__ Item list_item(const Item (&v)[R], int i) {
+  Item x = v[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r) x = (i >> 5) == r ? v[r] : x;
+  return __shfl_sync(kFullWarp, x, i & 31);
+}
+
+// One warp: list a becomes the least R * 32 items of sorted lists a and b.
+template <int R>
+__device__ __forceinline__ void merge_lists(Item* a, const Item* b, int lane) {
+  constexpr int L = R * 32;
+  Item v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const Item x = a[r * 32 + lane], y = b[L - 1 - r * 32 - lane];
+    v[r] = x < y ? x : y;
+  }
+  merge_bitonic<R>(v, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) a[r * 32 + lane] = v[r];
+}
+
+// The whole block: lists[0] becomes the least R * 32 items of the `count`
+// sorted lists (shared or device memory), merged pairwise a round at a time.
+template <int R>
+__device__ void merge_tree(Item* lists, int count) {
+  constexpr int L = R * 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  __syncthreads();
+  for (int step = 1; step < count; step <<= 1) {
+    for (int a = 2 * step * warp; a + step < count; a += 2 * step * warps) {
+      merge_lists<R>(lists + int64_t{a} * L, lists + int64_t{a + step} * L, lane);
+    }
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ Item load_volatile(const Item* p) {
+  return *reinterpret_cast<const volatile Item*>(p);
+}
+
+// Kernel T's first launch: block b takes segment b % segments of row
+// b / segments and writes the least L = R * 32 items of it to lists (or, with
+// one segment a row, the first k indices to out).  Its 16-byte words [a0, a1)
+// go to warp w in batches of 32 (batch i to warp i % kSelectWarps), U batches
+// of a warp in flight; the fewer than 2V keys around them go to warp 0's lanes.
+template <typename T, int R, int U>
+__global__ void __launch_bounds__(kSelectThreads)
+    select_segments_kernel(const typename KeyBits<T>::U* __restrict__ x, Item* __restrict__ lists,
+                           int32_t* __restrict__ out, int64_t n, int segments, int k,
+                           bool largest) {
+  using K = typename KeyBits<T>::U;
+  constexpr int L = R * 32;
+  constexpr int V = 16 / int(sizeof(K));  // keys in a 16-byte word
+  constexpr int Q = 32 * V + 32;          // under 32 items left, and a word a lane
+  __shared__ Item queues[kSelectWarps][Q];
+  __shared__ Item warp_lists[kSelectWarps * L];
+  __shared__ Item bound;  // the least k-th item of any warp's list
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row = blockIdx.x / segments;
+  const int seg = int(blockIdx.x % segments);
+  const int64_t begin = n * seg / segments, end = n * (seg + 1) / segments;
+  const K* keys = x + row * n;
+  const int64_t skew =
+      int64_t((16 - reinterpret_cast<uintptr_t>(keys + begin) % 16) % 16) / int64_t{sizeof(K)};
+  const int64_t a0 = begin + skew < end ? begin + skew : end;
+  const int64_t words = (end - a0) / V;
+  const int64_t a1 = a0 + words * V;
+  if (threadIdx.x == 0) bound = kNoItem;
+  __syncthreads();
+
+  Item v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = kNoItem;
+  Item theta = kNoItem;  // item k - 1 of this warp's list
+  Item* q = queues[warp];
+  int count = 0;  // items in the queue, the same on every lane
+  auto push = [&](Item c, bool pass) {
+    const unsigned m = __ballot_sync(kFullWarp, pass);
+    if (pass) q[count + __popc(m & ((1u << lane) - 1u))] = c;
+    count += __popc(m);
+  };
+  auto drain = [&]() {
+    __syncwarp();
+    while (count >= 32) {
+      count -= 32;
+      const Item c = q[count + lane];
+      __syncwarp();
+      list_insert<R>(v, c, lane);
+      theta = list_item<R>(v, k - 1);
+    }
+    if (lane == 0 && theta < load_volatile(&bound)) atomicMin(&bound, theta);
+  };
+
+  if (warp == 0) {
+    const int64_t head = a0 - begin, around = head + (end - a1);
+    const int64_t i = lane < head ? begin + lane : a1 + (lane - head);
+    const bool has = lane < around;
+    push(has ? select_item(select_key<T>(keys[i], largest), i) : kNoItem, has);
+    drain();
+  }
+  const uint4* word = reinterpret_cast<const uint4*>(keys + a0);
+  const int64_t batches = (words + 31) / 32;
+  const int64_t step = int64_t{kSelectWarps} * U;
+  uint4 w[U], ahead[U];
+  auto fetch = [&](int64_t b, uint4 (&to)[U]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t p = (b + int64_t{u} * kSelectWarps) * 32 + lane;
+      to[u] = p < words ? __ldcs(word + p) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  fetch(warp, w);
+  for (int64_t b = warp; b < batches; b += step) {
+    fetch(b + step, ahead);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t p = (b + int64_t{u} * kSelectWarps) * 32 + lane;
+      const Item shared_bound = load_volatile(&bound);
+      const Item limit = theta < shared_bound ? theta : shared_bound;
+      K key[V];
+      unpack_word<K, V>(w[u], key);
+      Item c[V];
+      bool pass[V], any = false;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        c[e] = select_item(select_key<T>(key[e], largest), a0 + p * V + e);
+        pass[e] = p < words && c[e] < limit;
+        any = any || pass[e];
+      }
+      if (__any_sync(kFullWarp, any)) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) push(c[e], pass[e]);
+        drain();
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) w[u] = ahead[u];
+  }
+  __syncwarp();
+  if (count > 0) list_insert<R>(v, lane < count ? q[lane] : kNoItem, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) warp_lists[warp * L + r * 32 + lane] = v[r];
+  merge_tree<R>(warp_lists, kSelectWarps);
+  if (out != nullptr) {
+    for (int i = threadIdx.x; i < k; i += blockDim.x) out[row * k + i] = int32_t(uint32_t(warp_lists[i]));
+  } else {
+    Item* mine = lists + (row * segments + seg) * L;
+    for (int i = threadIdx.x; i < L; i += blockDim.x) mine[i] = warp_lists[i];
+  }
+}
+
+// Kernel T's second launch: block r merges row r's segment lists in place and
+// writes the first k indices.
+template <int R>
+__global__ void __launch_bounds__(kSelectThreads)
+    select_merge_kernel(Item* __restrict__ lists, int32_t* __restrict__ out, int segments, int k) {
+  constexpr int L = R * 32;
+  const int64_t row = blockIdx.x;
+  Item* mine = lists + row * segments * L;
+  merge_tree<R>(mine, segments);
+  for (int i = threadIdx.x; i < k; i += blockDim.x) out[row * k + i] = int32_t(uint32_t(mine[i]));
+}
+
 int log2_exact(int64_t v) {
   int l = 0;
   while ((int64_t{1} << l) < v) ++l;
@@ -930,6 +1212,41 @@ cudaError_t launch_merge(const void* x, void* out, int64_t total, int64_t width,
   return cudaGetLastError();
 }
 
+template <typename T, int R>
+cudaError_t launch_select_lists(const void* x, void* lists, void* out, int64_t rows, int64_t n,
+                                int segments, int k, bool largest, cudaStream_t stream) {
+  using K = typename KeyBits<T>::U;
+  constexpr int U = sizeof(K) == 4 ? 4 : 2;  // 16 keys a lane in flight
+  select_segments_kernel<T, R, U><<<unsigned(rows * segments), kSelectThreads, 0, stream>>>(
+      static_cast<const K*>(x), static_cast<Item*>(lists),
+      segments == 1 ? static_cast<int32_t*>(out) : nullptr, n, segments, k, largest);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || segments == 1) return e;
+  select_merge_kernel<R><<<unsigned(rows), kSelectThreads, 0, stream>>>(
+      static_cast<Item*>(lists), static_cast<int32_t*>(out), segments, k);
+  return cudaGetLastError();
+}
+
+// Validates before any launch (cudaErrorInvalidValue otherwise): 1 <= k <=
+// min(n, list_len), list_len 64, 128 or 256, n below 2^31 (int32 indices),
+// 1 <= segments <= n, at most 2^31 - 1 blocks, and scratch for the lists
+// unless a row is one segment.  Keys need no alignment.
+template <typename T>
+cudaError_t launch_select(const void* x, void* lists, void* out, int64_t rows, int64_t n,
+                          int segments, int list_len, int k, bool largest, cudaStream_t stream) {
+  const bool ok = rows >= 0 && n >= 1 && n <= INT32_MAX && k >= 1 && k <= list_len && k <= n &&
+                  segments >= 1 && segments <= n && rows * segments <= INT32_MAX &&
+                  (segments == 1 || lists != nullptr);
+  if (!ok) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  switch (list_len) {
+    case 64: return launch_select_lists<T, 2>(x, lists, out, rows, n, segments, k, largest, stream);
+    case 128: return launch_select_lists<T, 4>(x, lists, out, rows, n, segments, k, largest, stream);
+    case 256: return launch_select_lists<T, 8>(x, lists, out, rows, n, segments, k, largest, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // dtype codes, as bitonic_sort.py passes them
 enum : int { kFloat32 = 0, kInt32 = 1, kFloat16 = 2, kBFloat16 = 3 };
 
@@ -999,6 +1316,24 @@ extern "C" int bitonic_merge_runs(int dtype, const void* x, void* out, long long
     case kFloat16: return launch_merge<__half>(x, out, total, width, threads, elems, passes, s);
     case kBFloat16:
       return launch_merge<__nv_bfloat16>(x, out, total, width, threads, elems, passes, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Kernel T: the int32 indices of the k best keys of each of `rows` rows of n
+// into out (rows x k), best first; `lists` holds rows x segments x list_len
+// items of scratch (none for one segment a row).
+extern "C" int bitonic_topk_select(int dtype, const void* x, void* lists, void* out,
+                                   long long rows, long long n, int segments, int list_len, int k,
+                                   int largest, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool l = largest != 0;
+  switch (dtype) {
+    case kFloat32: return launch_select<float>(x, lists, out, rows, n, segments, list_len, k, l, s);
+    case kInt32: return launch_select<int32_t>(x, lists, out, rows, n, segments, list_len, k, l, s);
+    case kFloat16: return launch_select<__half>(x, lists, out, rows, n, segments, list_len, k, l, s);
+    case kBFloat16:
+      return launch_select<__nv_bfloat16>(x, lists, out, rows, n, segments, list_len, k, l, s);
     default: return cudaErrorInvalidValue;
   }
 }

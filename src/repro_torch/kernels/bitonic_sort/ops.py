@@ -28,6 +28,10 @@ float16 and bfloat16 widened exactly): NaN of either sign is ``INT32_MAX``,
 which a pad (the same key at a rank >= n) follows, so the first n ranks are
 ``impl='xla'``'s permutation.  ``kernel_sort`` gives NaN keys unspecified
 output.
+
+``kernel_topk`` does not sort: kernel T (``bitonic_sort.topk_select``)
+selects the k best keys of each row in one read of it, for the dtypes of
+``kernel_sort`` and ``k <= SELECT_MAX_K`` (``topk_takes``).
 """
 from __future__ import annotations
 
@@ -35,14 +39,16 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch.exchange.slabs import sentinel_for
-from repro_torch.keys import from_kernel_keys, sort_image, to_kernel_keys
+from repro_torch.keys import INT32_MAPPED, from_kernel_keys, sort_image, to_kernel_keys
 
-from .bitonic_sort import MAX_BLOCK_N, next_pow2, sort_rows
+from .bitonic_sort import KEY_DTYPES, MAX_BLOCK_N, SELECT_MAX_K, next_pow2, sort_rows, topk_select
 
 __all__ = [
     "kernel_sort",
     "kernel_argsort",
     "kernel_sort_kv",
+    "kernel_topk",
+    "topk_takes",
     "DEFAULT_BLOCK_N",
     "MAX_BLOCK_N",
 ]
@@ -132,3 +138,28 @@ def kernel_sort_kv(keys: torch.Tensor, values, *, block_n: int = DEFAULT_BLOCK_N
         raise ValueError("kernel_sort_kv expects 1-D keys")
     perm = kernel_argsort(keys, block_n=block_n).long()
     return keys[perm], tree_map(lambda v: v[perm], values)
+
+
+# the dtypes kernel_sort takes: the kernels' own and those to_kernel_keys maps
+_TOPK_DTYPES = (*KEY_DTYPES, *INT32_MAPPED)
+
+
+def topk_takes(x: torch.Tensor, k: int) -> bool:
+    """Kernel T's rule, all seen in the input: keys of a dtype it takes, on
+    CUDA or the CPU, with at least one axis of fewer than 2^31 keys, and
+    1 <= k <= min(n, SELECT_MAX_K)."""
+    return (x.dtype in _TOPK_DTYPES and x.device.type in ("cuda", "cpu") and x.dim() >= 1
+            and 1 <= k <= min(x.shape[-1], SELECT_MAX_K) and x.shape[-1] < 1 << 31)
+
+
+def kernel_topk(x: torch.Tensor, k: int, *, largest: bool = True) -> torch.Tensor:
+    """Int32 indices of the k best keys along the last axis, best first:
+    the largest (or smallest), NaN of either sign last, -0.0 tied with +0.0,
+    ties to the lowest index, as ``engine.topk``'s stable argsort has them.
+    Kernel T on CUDA tensors, its plain version on CPU ones; ``x`` as
+    ``topk_takes`` has it.
+
+    >>> kernel_topk(torch.tensor([1.0, 9.0, 4.0, 9.0]), 3).tolist()
+    [1, 3, 2]
+    """
+    return topk_select(to_kernel_keys(x).contiguous(), k, largest)

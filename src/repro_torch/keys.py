@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sort_image", "int_bits", "gather_bits", "rev_key", "to_kernel_keys", "from_kernel_keys"]
+__all__ = [
+    "sort_image", "int_bits", "gather_bits", "rev_key", "to_kernel_keys", "from_kernel_keys",
+    "INT32_MAPPED",
+]
 
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 # torch has no gather and no bitwise NOT for these
@@ -18,6 +21,8 @@ _UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
 _INT32_SIGN = -(1 << 31)
 # widened exactly: int32 keeps their order
 _WIDENED = (torch.int8, torch.uint8, torch.int16, torch.uint16)
+# the dtypes to_kernel_keys maps onto int32 keys in the same order
+INT32_MAPPED = (*_WIDENED, torch.uint32)
 
 
 def sort_image(x: torch.Tensor) -> torch.Tensor:

@@ -266,14 +266,16 @@ def test_plain_versions_leave_launch_counts_alone():
 
 
 def test_counters_keep_their_keys_and_read_zero_after_a_reset():
-    kernels.tally.update(block_sort_kv=2, substages=3, merge_runs=1, rank_merge_pairs=4)
+    kernels.tally.update(block_sort_kv=2, substages=3, merge_runs=1, rank_merge_pairs=4, topk_select=5)
     assert kernels.launch_counts()["block_sort_kv"] == 2
+    assert kernels.launch_counts()["topk_select"] == 5
     assert kernels.substage_counts()["global_stage"] == 3
     assert kernels.merge_round_counts() == {"merge_runs": 1, "rank_merge_pairs": 4}
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {
         "block_sort": 0, "block_merge": 0, "global_stage": 0,
         "block_sort_kv": 0, "block_merge_kv": 0, "global_stage_kv": 0, "merge_runs": 0,
+        "topk_select": 0,
     }
     assert kernels.substage_counts() == {"global_stage": 0, "global_stage_kv": 0}
     assert kernels.merge_round_counts() == {"merge_runs": 0, "rank_merge_pairs": 0}

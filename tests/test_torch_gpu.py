@@ -20,6 +20,7 @@ from repro_torch.core.shared_sort import shared_memory_sort
 from repro_torch.kernels.bitonic_sort import bitonic_sort as kernels
 from repro_torch.kernels.bitonic_sort import ops
 
+from _torch_topk import CASES as TOPK_CASES, case_id, numpy_topk, topk_keys
 from test_torch_merge_path import CASES as MERGE_CASES, merge_keys, rank_merge
 
 pytestmark = pytest.mark.gpu
@@ -72,6 +73,7 @@ def test_block_kernels_match_plain(cuda, dtype, block_n):
     assert kernels.launch_counts() == {
         "block_sort": 1, "block_merge": 1, "global_stage": 0,
         "block_sort_kv": 1, "block_merge_kv": 1, "global_stage_kv": 0, "merge_runs": 0,
+        "topk_select": 0,
     }
 
 
@@ -130,6 +132,7 @@ def test_sort_and_argsort_fuse_the_cross_tile_substages(cuda):
     assert kernels.launch_counts() == {
         "block_sort": 1, "block_merge": 11, "global_stage": 21,
         "block_sort_kv": 0, "block_merge_kv": 0, "global_stage_kv": 0, "merge_runs": 0,
+        "topk_select": 0,
     }
     assert kernels.substage_counts() == {"global_stage": 66, "global_stage_kv": 0}
     kernels.reset_launch_counts()
@@ -140,6 +143,7 @@ def test_sort_and_argsort_fuse_the_cross_tile_substages(cuda):
     assert kernels.launch_counts() == {
         "block_sort": 0, "block_merge": 0, "global_stage": 0,
         "block_sort_kv": 1, "block_merge_kv": 14, "global_stage_kv": 32, "merge_runs": 0,
+        "topk_select": 0,
     }
     assert kernels.substage_counts() == {"global_stage": 0, "global_stage_kv": 105}
 
@@ -320,12 +324,13 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
 
     # the public plain versions, and the ones the launch path runs on a CPU tensor
     for name in ("plain_block_sort", "plain_block_merge", "plain_global_stage",
-                 "_plain_tile", "plain_global_stages", "plain_merge_runs"):
+                 "_plain_tile", "plain_global_stages", "plain_merge_runs", "plain_topk_select"):
         monkeypatch.setattr(kernels, name, refuse)
     x = _keys(torch.int32, (50_000,), seed=1).to(cuda)
     vals, idx = engine.topk(x, 10, impl="kernel", block_n=1024)
     want_v, _ = torch.topk(x.cpu(), 10)
     assert torch.equal(vals.cpu(), want_v)
+    assert torch.equal(engine.argsort(x, impl="kernel").cpu().long(), torch.argsort(x.cpu(), stable=True))
     assert torch.equal(ops.kernel_sort(x).cpu(), torch.sort(x.cpu()).values)
     # a merge round that kernel M takes
     tile = kernels.MERGE_TILE
@@ -333,7 +338,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     _assert_same_bits(merge.merge_adjacent(y.to(cuda), tile), rank_merge(y, tile))
     counts = kernels.launch_counts()
     assert all(counts[name] for name in ("block_sort", "block_merge", "global_stage",
-                                         "block_sort_kv", "block_merge_kv", "global_stage_kv"))
+                                         "block_sort_kv", "block_merge_kv", "global_stage_kv",
+                                         "topk_select"))
     assert counts["merge_runs"] == 1
 
 
@@ -359,6 +365,7 @@ def test_block_n_above_the_cap_is_composed(cuda):
     assert kernels.launch_counts() == {
         "block_sort": 1, "block_merge": 2, "global_stage": 2,
         "block_sort_kv": 1, "block_merge_kv": 2, "global_stage_kv": 2, "merge_runs": 0,
+        "topk_select": 0,
     }
     y = _keys(torch.float32, (3, 100_000), seed=6)
     assert torch.equal(ops.kernel_sort(y.to(cuda), block_n=bn).cpu(), torch.sort(y, dim=-1).values)
@@ -469,3 +476,69 @@ def test_merge_runs_refuses_what_it_does_not_take(cuda):
                                             torch.cuda.current_stream().cuda_stream)
     assert err and kernels._lib().bitonic_error_string(err) == b"invalid argument"
     assert kernels.launch_counts()["merge_runs"] == 0
+
+
+# ------------------------------------------------------------------ kernel T ---
+def _launched(counts):
+    return {name: v for name, v in counts.items() if v}
+
+
+@pytest.mark.parametrize("largest", [True, False])
+def test_topk_select_at_the_decode_cell_shape(cuda, largest):
+    # 128 rows of a 256,000-token vocabulary, k = 50, logits rounded to bf16:
+    # ties straddle the 50th place, so the indices decide
+    x = topk_keys("bf16_ties", torch.float32, (128, 256_000), seed=50).to(cuda)
+    vals, idx = engine.topk(x, 50, largest=largest, impl="kernel")
+    assert _launched(kernels.launch_counts()) == {"topk_select": 2}
+    assert torch.equal(idx, kernels.plain_topk_select(x, 50, largest))
+    want_vals, want_idx = engine.topk(x, 50, largest=largest, impl="xla")
+    assert torch.equal(idx, want_idx)
+    _assert_same_bits(vals, want_vals)
+
+
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("case", TOPK_CASES, ids=case_id)
+def test_topk_select_matches_plain_on_edge_cases(cuda, case, largest):
+    kind, dtype, shape, k = case
+    x = topk_keys(kind, dtype, shape, seed=k + 1)
+    vals, idx = engine.topk(x.to(cuda), k, largest=largest, impl="kernel")
+    assert kernels.launch_counts()["topk_select"] >= 1
+    np.testing.assert_array_equal(idx.cpu().numpy(), numpy_topk(x, k, largest))
+    assert torch.equal(idx.cpu(), ops.kernel_topk(x, k, largest=largest))
+    # torch.sort takes no uint32 on CUDA: impl="xla" runs those keys on the CPU
+    want_vals, want_idx = engine.topk(x if dtype == torch.uint32 else x.to(cuda), k,
+                                      largest=largest, impl="xla")
+    assert torch.equal(idx.cpu(), want_idx.cpu())
+    assert torch.equal(vals.cpu().view(torch.uint8), want_vals.cpu().view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_topk_select_takes_keys_at_any_alignment(cuda, dtype):
+    # a row that starts off 16 bytes (a view), and rows whose width puts each
+    # start elsewhere, across several segments
+    x = topk_keys("specials", torch.float32, (100_003,), seed=3).to(dtype)
+    for offset in (1, 2, 3):
+        row = x.to(cuda)[offset:]
+        got = kernels.topk_select(row, 64)
+        assert torch.equal(got.cpu(), kernels.plain_topk_select(x[offset:], 64))
+    rows = x[: 3 * 33_331].reshape(3, 33_331)
+    assert torch.equal(kernels.topk_select(rows.to(cuda), 50, False).cpu(),
+                       kernels.plain_topk_select(rows, 50, False))
+
+
+def test_topk_above_select_max_k_launches_the_network(cuda):
+    x = topk_keys("bf16_ties", torch.float32, (4, 3000), seed=4).to(cuda)
+    k = kernels.SELECT_MAX_K + 1
+    vals, idx = engine.topk(x, k, impl="kernel")
+    counts = _launched(kernels.launch_counts())
+    assert "topk_select" not in counts and counts["block_sort_kv"] == 1
+    assert torch.equal(idx, engine.topk(x, k, impl="xla")[1])
+
+
+def test_topk_select_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 100, device=cuda)
+    with pytest.raises(ValueError, match="1 <= k"):
+        kernels.topk_select(x, kernels.SELECT_MAX_K + 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.topk_select(x[:, ::2], 5)
+    assert kernels.launch_counts()["topk_select"] == 0
